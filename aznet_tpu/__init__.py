@@ -1,11 +1,12 @@
-"""aznet_tpu — a TPU-native adjacency-and-zoom proposal + detection framework.
+"""aznet_tpu — an adjacency-and-zoom proposal + detection framework in JAX.
 
-Brand-new JAX/XLA/Flax/Pallas implementation of the capabilities of the
-reference ``luyongxi/az-net`` (AZ-Net, CVPR 2016; see SURVEY.md). Not a port:
-the reference's host-driven recursive region search becomes an on-device
+JAX/XLA/Pallas implementation of the capabilities of the reference
+``luyongxi/az-net`` (AZ-Net, CVPR 2016; see SURVEY.md). Not a port: the
+reference's host-driven recursive region search becomes an on-device
 ``lax.while_loop`` over padded frontiers; its Cython NMS / CUDA ROIPooling
-become vectorized-JAX + Pallas kernels; its Caffe prototxt nets become Flax
-modules; training is data-parallel ``pjit`` over a TPU mesh.
+become vectorized JAX plus a Pallas (Triton) NMS kernel; its Caffe prototxt
+nets become plain-JAX modules; training is data-parallel ``pjit`` over a
+device mesh.
 
 Public API mirrors the reference (SURVEY.md §3):
   - ``aznet_tpu.api.im_propose`` — scored proposal generation (reference

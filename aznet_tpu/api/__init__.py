@@ -4,7 +4,7 @@ Reference equivalents (SURVEY.md §3.1/§3.2):
   - ``im_propose(net, im)``          — lib/detect/test.py::im_propose
   - ``im_detect(net, im, boxes)``    — lib/fast_rcnn/test.py::im_detect
 
-A ``Net`` bundles (flax module, params, config) — the role pycaffe's
+A ``Net`` bundles (model, params, config) — the role pycaffe's
 ``caffe.Net`` plays for the reference. The host functions take a raw HWC BGR
 image (any size), do fused preprocessing onto a bucketed static canvas
 (bounded recompiles), run the fully on-device pipeline, and return NumPy
@@ -110,7 +110,7 @@ def _blob_dtype(cfg: Config):
 
 def _maybe_quantize_feat(cfg: Config, feat):
     """cfg.MODEL.INT8_ROI: quantize the trunk output once (conv5_3's
-    calibrated scale) so ROI pooling + fc6 run on the int8 MXU end to end
+    calibrated scale) so ROI pooling + fc6 run as int8 GEMMs end to end
     (ops/roi_pool.py::roi_align_int8). One elementwise pass per image,
     hoisted out of the search's while_loop by construction."""
     mc = cfg.MODEL
@@ -125,9 +125,9 @@ def _maybe_quantize_feat(cfg: Config, feat):
 def _cast_inference_params(params, cfg: Config):
     """Pre-cast float32 params to the compute dtype ONCE per call.
 
-    Flax casts weights inside each layer application; inside the search's
+    The layers cast weights at each application; inside the search's
     while_loop that means re-casting the ~100M fc parameters EVERY level
-    (XLA does not hoist it) — measured 1.8 ms/img of pure cast traffic.
+    (XLA does not hoist it).
     Head outputs stay float32 via the heads' explicit dtype.
     """
     cast = lambda tree: jax.tree_util.tree_map(
@@ -376,7 +376,7 @@ def im_detect(net: Net, im: np.ndarray, boxes: np.ndarray):
 
 
 # ---------------------------------------------------------------------------
-# Batched jit-native variants (the TPU throughput path)
+# Batched jit-native variants (the throughput path)
 # ---------------------------------------------------------------------------
 
 

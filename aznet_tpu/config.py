@@ -1,6 +1,6 @@
 """Configuration tree for aznet_tpu.
 
-TPU-native replacement for the reference's two parallel easydict config trees
+Replacement for the reference's two parallel easydict config trees
 (``lib/detect/config.py`` and ``lib/fast_rcnn/config.py`` — SURVEY.md §5.6):
 a single frozen-dataclass tree with the reference's semantic knobs preserved
 1:1 (SEAR.*, TRAIN.*, TEST.*, PIXEL_MEANS, RNG_SEED, ...) so that experiment
@@ -32,7 +32,7 @@ class SearchConfig:
 
     Reference: lib/detect/config.py (SURVEY.md §2.1 — zoom-indicator
     threshold, adjacency-confidence threshold, depth/budget caps, min region
-    size, final proposal count). TPU-new knobs (FRONTIER_CAP, CAND_BUF) exist
+    size, final proposal count). New knobs (FRONTIER_CAP, CAND_BUF) exist
     because the on-device search runs over fixed-shape padded frontiers.
     """
 
@@ -44,7 +44,7 @@ class SearchConfig:
     MAX_LEVELS: int = 6
     # Regions smaller than this (in pixels, shorter side) are not subdivided.
     MIN_SIZE: float = 16.0
-    # Static per-level frontier capacity R_max (TPU: padded frontier; the
+    # Static per-level frontier capacity R_max (a padded frontier; the
     # reference's frontier is an unbounded host-side list).
     FRONTIER_CAP: int = 64
     # Static proposal-candidate accumulator size (top-K eviction by score).
@@ -113,12 +113,12 @@ class TrainConfig:
     MAX_ITERS: int = 40000
     SNAPSHOT_ITERS: int = 10000
     SNAPSHOT_PREFIX: str = "aznet"
-    # Gradient clip (TPU-new; 0 disables).
+    # Gradient clip (not in the reference; 0 disables).
     GRAD_CLIP: float = 0.0
     # Rematerialize the trunk forward during backward (jax.checkpoint on
     # the features pass): drops the 13-conv activation stack from HBM —
     # the batch-size limiter at 608x800 — for one extra trunk forward
-    # per step. TPU-new; measured A/B in DESIGN.md finding 26.
+    # per step. Not in the reference.
     REMAT_TRUNK: bool = False
     # Minibatch-build worker processes (data/prefetch.py::MPPrefetcher).
     # 1 = the reference-parity single prefetch thread (stateful shared
@@ -146,13 +146,13 @@ class TestConfig:
     SCORE_THRESH: float = 0.05
     # Max detections kept per image after per-class NMS.
     MAX_PER_IMAGE: int = 100
-    # Pad batched images to multiples of this (TPU static shapes).
+    # Pad batched images to multiples of this (static shapes).
     SIZE_MULTIPLE: int = 32
     # Iterative bbox regression passes through the detection head (1 = the
     # reference's single decode). Each extra pass re-pools each roi at its
     # argmax-class decoded box and re-regresses — the one-shot adjacency
-    # regression caps high-IoU localization (TPU-new; round-4 lever for
-    # recall@{0.8,0.9} and mAP@0.7).
+    # regression caps high-IoU localization (not in the reference; a lever
+    # for recall@{0.8,0.9} and mAP@0.7).
     BBOX_ITER: int = 1
 
 
@@ -170,7 +170,7 @@ class ModelConfig:
     FEAT_STRIDE: int = 16
     # ROI pooling: output grid and mode.
     POOL_SIZE: int = 7
-    POOLING_MODE: str = "align"  # "align" (TPU-native) | "caffe_max" (parity)
+    POOLING_MODE: str = "align"  # "align" (matmul form) | "caffe_max" (parity)
     # Number of adjacency templates K (paper uses a fixed small template set).
     NUM_TEMPLATES: int = 11
     # Detection classes (VOC: 20 + background).
@@ -180,10 +180,10 @@ class ModelConfig:
     # SURVEY.md §2.1 smaller nets [M]); 0 = same as FC_DIM.
     FC7_DIM: int = 0
     DROPOUT: float = 0.5
-    # Compute dtype for conv/matmul ("bfloat16" rides the MXU; params stay
-    # f32). "int8" (inference-only, vgg16) runs the trunk convs as int8
-    # GEMMs (~272 TOPS on v5e vs ~152 TFLOP/s bf16) — requires calibrated
-    # INT8_SCALES; heads/conv1_1 stay bfloat16.
+    # Compute dtype for conv/matmul ("bfloat16" on the tensor cores; params
+    # stay f32). "int8" (inference-only, vgg16/resnet50) runs the trunk
+    # convs as XLA int8 GEMMs — requires calibrated INT8_SCALES;
+    # heads/conv1_1 stay bfloat16.
     COMPUTE_DTYPE: str = "bfloat16"
     # Static per-layer activation scales for the int8 trunk, in conv-layer
     # order (conv1_1..conv5_3): scale i quantizes conv i's post-ReLU output
@@ -194,43 +194,27 @@ class ModelConfig:
     # (ops/quant.py::calibrate_head_int8). () = heads stay bfloat16 even
     # in int8 mode.
     INT8_HEAD_SCALES: Tuple[float, ...] = ()
-    # Int8 trunk conv backend: "pallas" = the strip-DMA kernel (input read
-    # once, shifts + requant fused in VMEM — the fast path on TPU);
-    # "xla" = the dx-packed GEMM formulation (portable; loses to bf16 at
-    # the small-C layers, kept for CPU tests and A/B).
-    INT8_BACKEND: str = "pallas"
-    # First chain-kernel layer of the "pallas" backend. "conv2_2" (default)
-    # keeps conv1/conv2_1 in bf16 (every chain C is a real 128 multiple);
-    # "conv1_2" runs them int8 too via zero channel-padding to 128 lanes —
-    # 2-4x padded MACs on those two layers, but conv1_2 is HBM-bound in
-    # bf16 (~35 TF/s effective, DESIGN.md finding 12) so the int8 traffic
-    # still wins. Requires WIDTH=1.0.
-    INT8_CHAIN_FROM: str = "conv2_2"
     # Inference-only: quantize the trunk output feature map once per image
     # (at INT8_HEAD_SCALES[0], the calibrated conv5_3 scale) and run the
     # ROI-align row contraction — the search head's hot pooling matmul —
-    # on the int8 MXU (ops/roi_pool.py::roi_align_int8). Pooled features
+    # as an int8 GEMM (ops/roi_pool.py::roi_align_int8). Pooled features
     # stay int8 into the int8 fc6, skipping a dequant->requant pass.
     # Requires INT8_HEAD_SCALES and POOLING_MODE 'align'; no effect on
     # training paths.
     INT8_ROI: bool = False
     # ResNet stem as the exact space-to-depth rewrite (models/resnet.py
     # StemConv): pad the 7x7 kernel to 8x8, s2d the input by 2, run a 4x4
-    # stride-1 conv — term-identical math, ~4x better MXU contraction
-    # depth on the 3-channel input. Same checkpoints (in-jit re-layout);
+    # stride-1 conv — term-identical math, ~4x deeper contraction on the
+    # 3-channel input. Same checkpoints (in-jit re-layout);
     # auto-falls-back on odd input sizes. vgg16 ignores this.
     STEM_S2D: bool = True
     # VGG conv1_1 as the exact stride-1 space-to-depth rewrite
     # (models/vgg.py::conv1_1_s2d): pack the input 2x2, one 3x3 conv
     # emits all four output phases, depth-to-space back — term-identical
-    # math, K=12 contraction at quarter spatial size instead of the
-    # MXU-starved K=3 at full 608x800. Same checkpoints (in-jit
+    # math, K=12 contraction at quarter spatial size instead of K=3 at
+    # full 608x800. Same checkpoints (in-jit
     # re-layout); no-op on odd input sizes or non-vgg backbones.
     CONV1_S2D: bool = False
-    # Inference-only: fuse the VGG conv1 block (conv1_1+conv1_2+pool1) into
-    # one Pallas kernel on TPU. Same params/checkpoints; training paths must
-    # leave this off (the kernel has no VJP).
-    FUSE_CONV1: bool = False
 
 
 @dataclass(frozen=True)
@@ -309,7 +293,11 @@ def cfg_from_file(cfg: Config, filename: str) -> Config:
     Mirrors the reference's ``cfg_from_file`` (lib/fast_rcnn/config.py,
     SURVEY.md §5.6) but returns a new frozen Config.
     """
-    import yaml
+    try:
+        import yaml
+    except ImportError as e:
+        raise ImportError("YAML config files need PyYAML "
+                          "(pip install pyyaml)") from e
 
     with open(filename) as f:
         data = yaml.safe_load(f) or {}

@@ -93,7 +93,7 @@ def _prep_images(imdb, entries: List[dict], cfg: Config, rng, canvas=None):
             im = _resize_bilinear_np(im, out_h, out_w)
         ims.append(im)
     blob = im_list_to_blob(ims)
-    # Round spatial dims up for TPU-friendly static shapes.
+    # Round spatial dims up for static shapes.
     mult = cfg.TEST.SIZE_MULTIPLE
     h = int(-(-blob.shape[1] // mult) * mult)
     w = int(-(-blob.shape[2] // mult) * mult)

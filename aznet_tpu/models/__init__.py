@@ -1,10 +1,11 @@
-"""Flax network definitions.
+"""Network definitions in plain JAX (parameters as nested dicts).
 
 The reference keeps architectures as Caffe prototxts under ``models/``
 (SURVEY.md §2.1 "AZ network definitions"); here the modules ARE the
 definition. Backbones output stride-16 feature maps consumed by ROI pooling
 and the fc6/fc7 heads, mirroring the reference's VGG-16 → ROIPool(7x7, 1/16)
-→ fc6/fc7 → heads topology.
+→ fc6/fc7 → heads topology. ``layers.py`` holds the shared layers and the
+``init``/``apply`` protocol.
 """
 
 from aznet_tpu.models.vgg import VGG16Trunk

@@ -11,62 +11,18 @@ the reference re-enters Caffe from Python at every tree level (SURVEY.md
 
 from __future__ import annotations
 
-import flax.linen as nn
+import dataclasses
+import functools
 
-from aznet_tpu.config import ModelConfig
-from aznet_tpu.models.backbones import get_backbone
+from aznet_tpu.models.backbones import RoiNet
 from aznet_tpu.models.heads import AZHead
-from aznet_tpu.ops.roi_pool import roi_pool
 
 
-class AZNet(nn.Module):
-    """Zoom/adjacency proposal network.
+@dataclasses.dataclass(frozen=True)
+class AZNet(RoiNet):
+    """Zoom/adjacency proposal network (methods: see ``RoiNet``)."""
 
-    Methods (use with ``model.apply(..., method=...)``):
-      - ``features(images [B,H,W,3])`` -> ``[B, H/16, W/16, C]``
-      - ``roi_forward(feat [h,w,C], rois [R,4])`` -> head outputs dict
-      - ``__call__`` = features + roi_forward on image 0 (init convenience)
-    """
-
-    model_cfg: ModelConfig = ModelConfig()
-
-    def setup(self):
-        self.trunk = get_backbone(self.model_cfg)
-        mc = self.model_cfg
-        self.head = AZHead(
-            num_templates=mc.NUM_TEMPLATES,
-            fc_dim=mc.FC_DIM,
-            fc7_dim=mc.FC7_DIM,
-            dropout=mc.DROPOUT,
-            dtype=self.trunk.dtype,
-            # Heads quantize independently of the trunk: INT8_HEAD_SCALES
-            # alone enables the int8 fc stack (bf16 trunk + int8 heads is
-            # a valid, separately-benchable configuration).
-            int8_scales=(tuple(mc.INT8_HEAD_SCALES)
-                         if mc.COMPUTE_DTYPE != "float32" else ()),
-        )
-
-    def features(self, images):
-        return self.trunk(images)
-
-    def roi_pool_only(self, feat, rois):
-        """Pool rois from one feature map (no head) — see FRCNN's note on
-        the multi-scale pyramid's pool-select-then-head pattern."""
-        return roi_pool(
-            feat,
-            rois,
-            1.0 / self.model_cfg.FEAT_STRIDE,
-            self.model_cfg.POOL_SIZE,
-            mode=self.model_cfg.POOLING_MODE,
-        )
-
-    def head_forward(self, pooled, train: bool = False):
-        return self.head(pooled, train=train)
-
-    def roi_forward(self, feat, rois, train: bool = False):
-        """feat: single-image [h, w, C]; rois: [R, 4] image coords."""
-        return self.head(self.roi_pool_only(feat, rois), train=train)
-
-    def __call__(self, images, rois, train: bool = False):
-        feat = self.features(images)
-        return self.roi_forward(feat[0], rois, train=train)
+    @functools.cached_property
+    def head(self):
+        return AZHead(num_templates=self.model_cfg.NUM_TEMPLATES,
+                      **self._head_kwargs())

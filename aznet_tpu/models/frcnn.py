@@ -10,53 +10,18 @@ SURVEY.md §2.1 "Shared-trunk / combined eval").
 
 from __future__ import annotations
 
-import flax.linen as nn
+import dataclasses
+import functools
 
-from aznet_tpu.config import ModelConfig
-from aznet_tpu.models.backbones import get_backbone
+from aznet_tpu.models.backbones import RoiNet
 from aznet_tpu.models.heads import FRCNNHead
-from aznet_tpu.ops.roi_pool import roi_pool
 
 
-class FRCNN(nn.Module):
-    """21-class detection head over proposal boxes."""
+@dataclasses.dataclass(frozen=True)
+class FRCNN(RoiNet):
+    """Detection head over proposal boxes (methods: see ``RoiNet``)."""
 
-    model_cfg: ModelConfig = ModelConfig()
-
-    def setup(self):
-        self.trunk = get_backbone(self.model_cfg)
-        mc = self.model_cfg
-        self.head = FRCNNHead(
-            num_classes=mc.NUM_CLASSES,
-            fc_dim=mc.FC_DIM,
-            fc7_dim=mc.FC7_DIM,
-            dropout=mc.DROPOUT,
-            dtype=self.trunk.dtype,
-            int8_scales=(tuple(mc.INT8_HEAD_SCALES)
-                         if mc.COMPUTE_DTYPE != "float32" else ()),
-        )
-
-    def features(self, images):
-        return self.trunk(images)
-
-    def roi_pool_only(self, feat, rois):
-        """Pool rois from one feature map (no head). The multi-scale
-        pyramid pools per scale (cheap gathers), SELECTS per roi, and runs
-        the expensive fc head once — R instead of R*S head cost."""
-        return roi_pool(
-            feat,
-            rois,
-            1.0 / self.model_cfg.FEAT_STRIDE,
-            self.model_cfg.POOL_SIZE,
-            mode=self.model_cfg.POOLING_MODE,
-        )
-
-    def head_forward(self, pooled, train: bool = False):
-        return self.head(pooled, train=train)
-
-    def roi_forward(self, feat, rois, train: bool = False):
-        return self.head(self.roi_pool_only(feat, rois), train=train)
-
-    def __call__(self, images, rois, train: bool = False):
-        feat = self.features(images)
-        return self.roi_forward(feat[0], rois, train=train)
+    @functools.cached_property
+    def head(self):
+        return FRCNNHead(num_classes=self.model_cfg.NUM_CLASSES,
+                         **self._head_kwargs())

@@ -12,22 +12,23 @@ applied by the callers (losses want logits, search wants probabilities).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
+
+from aznet_tpu.models.layers import Module, dense, dense_params, dropout
 
 
-class _FCStack(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class _FCStack(Module):
     """fc6/fc7 with ReLU + dropout, shared by both heads.
 
     ``int8_scales = (s_in, s_mid)`` switches inference to int8 GEMMs
     (ops/conv_int8 quantization scheme): the pooled features quantize with
-    the calibrated trunk-output scale, fc6's output with ``s_mid``. The
-    25088x4096 fc6 kernel is the search's hot matmul AND is re-read from
-    HBM at every tree level — int8 quarters both the weight traffic and
-    the MXU time (272 TOPS vs 152 TFLOP/s bf16 on v5e). Same params.
+    the calibrated trunk-output scale, fc6's output with ``s_mid``. Same
+    params.
     """
 
     fc_dim: int = 4096
@@ -37,30 +38,39 @@ class _FCStack(nn.Module):
     dtype: Any = jnp.bfloat16
     int8_scales: tuple = ()
 
-    @nn.compact
-    def __call__(self, x, train: bool = False):
+    def init_params(self, key, x) -> dict:
+        din = 1
+        for d in x.shape[1:]:
+            din *= d
+        return {"fc6": dense_params(key.child("fc6"), din, self.fc_dim),
+                "fc7": dense_params(key.child("fc7"), self.fc_dim,
+                                    self.fc7_dim or self.fc_dim)}
+
+    def __call__(self, p, x, train: bool = False, rng=None):
         # x: [R, P, P, C] pooled roi features. int8 input = ALREADY
         # quantized at s_in (the int8 roi_align path) — valid only for the
         # int8 inference stack, which then skips its own quantize.
         x = x.reshape((x.shape[0], -1))
-        if self.int8_scales and not train and not self.is_initializing():
-            return self._int8_stack(x)
+        if self.int8_scales and not train:
+            return self._int8_stack(p, x)
         if x.dtype == jnp.int8:
             raise ValueError("int8 pooled features reached a non-int8 head "
                              "(missing INT8_HEAD_SCALES, or train=True)")
-        x = x.astype(self.dtype)
-        x = nn.Dense(self.fc_dim, dtype=self.dtype, name="fc6")(x)
-        x = nn.relu(x)
-        x = nn.Dropout(self.dropout, deterministic=not train)(x)
-        x = nn.Dense(self.fc7_dim or self.fc_dim, dtype=self.dtype, name="fc7")(x)
-        x = nn.relu(x)
-        x = nn.Dropout(self.dropout, deterministic=not train)(x)
-        return x
+        r6 = r7 = None
+        if train and rng is not None:
+            r6, r7 = jax.random.split(rng)
+        x = jax.nn.relu(dense(p["fc6"], x, self.dtype))
+        x = dropout(x, self.dropout, train, r6)
+        x = jax.nn.relu(dense(p["fc7"], x, self.dtype))
+        return dropout(x, self.dropout, train, r7)
 
-    def _int8_stack(self, x):
+    def fc6_preact(self, p, x):
+        """fc6's pre-ReLU output (int8 head calibration, ops/quant.py)."""
+        return dense(p["fc6"], x.reshape((x.shape[0], -1)), self.dtype)
+
+    def _int8_stack(self, p, x):
         from aznet_tpu.ops.conv_int8 import INT8_MAX, quantize_acts
 
-        p = self.variables["params"]
         s_in, s_mid = self.int8_scales
 
         def int8_dense(x8, sx, name, s_out):
@@ -96,7 +106,53 @@ def _fused_heads(params, x, names):
         dimension_numbers=(((x.ndim - 1,), (0,)), ((), ()))) + b
 
 
-class AZHead(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class _Head(Module):
+    """fc stack + float32 output projections ``_OUTPUTS``:
+    ``(name, width multiplier of num_outputs, init stddev)``."""
+
+    fc_dim: int = 4096
+    fc7_dim: int = 0
+    dropout: float = 0.5
+    dtype: Any = jnp.bfloat16
+    int8_scales: tuple = ()
+
+    _OUTPUTS = ()
+
+    @property
+    def fc(self) -> _FCStack:
+        return _FCStack(self.fc_dim, self.fc7_dim, self.dropout, self.dtype,
+                        self.int8_scales)
+
+    def _widths(self) -> dict:
+        raise NotImplementedError
+
+    def init_params(self, key, roi_feats) -> dict:
+        params = {"fc": self.fc.init_params(key.child("fc"), roi_feats)}
+        din = self.fc7_dim or self.fc_dim
+        widths = self._widths()
+        for name, std in self._OUTPUTS:
+            params[name] = dense_params(key.child(name), din, widths[name],
+                                        std)
+        return params
+
+    def _project(self, p, roi_feats, train, rng):
+        """Concatenated [R, sum(widths)] float32 outputs."""
+        x = self.fc(p["fc"], roi_feats, train, rng)
+        names = [n for n, _ in self._OUTPUTS]
+        if train:
+            return jnp.concatenate(
+                [dense(p[n], x, jnp.float32) for n in names], axis=-1)
+        # Inference fast path: ONE [fc7, sum-of-heads] dot instead of
+        # several separate tiny-N f32 dots — XLA does not merge sibling
+        # dots, and these run EVERY search level inside the while_loop. The
+        # concat of loop-invariant params is hoisted by XLA; per-column
+        # math is identical to the separate projections.
+        return _fused_heads(p, x, names)
+
+
+@dataclasses.dataclass(frozen=True)
+class AZHead(_Head):
     """[R, P, P, C] roi features -> zoom/adjacency logits and deltas.
 
     Returns dict: ``zoom [R]``, ``adj_score [R, K]`` (logits),
@@ -104,64 +160,38 @@ class AZHead(nn.Module):
     """
 
     num_templates: int = 11
-    fc_dim: int = 4096
-    fc7_dim: int = 0
-    dropout: float = 0.5
-    dtype: Any = jnp.bfloat16
-    int8_scales: tuple = ()
 
-    @nn.compact
-    def __call__(self, roi_feats, train: bool = False):
+    _OUTPUTS = (("zoom_score", 0.01), ("adj_score", 0.01),
+                ("adj_bbox", 0.001))
+
+    def _widths(self):
         k = self.num_templates
-        x = _FCStack(self.fc_dim, self.fc7_dim, self.dropout, self.dtype,
-                     self.int8_scales, name="fc")(roi_feats, train)
-        if self.is_initializing() or train:
-            zoom = nn.Dense(1, dtype=jnp.float32, name="zoom_score",
-                            kernel_init=nn.initializers.normal(0.01))(x)
-            adj = nn.Dense(k, dtype=jnp.float32, name="adj_score",
-                           kernel_init=nn.initializers.normal(0.01))(x)
-            delta = nn.Dense(4 * k, dtype=jnp.float32, name="adj_bbox",
-                             kernel_init=nn.initializers.normal(0.001))(x)
-        else:
-            # Inference fast path: ONE [fc7, 1+5K] dot instead of three
-            # separate tiny-N f32 dots — XLA does not merge sibling dots,
-            # and these run EVERY search level inside the while_loop. The
-            # concat of loop-invariant params is hoisted by XLA; per-column
-            # math is identical to the separate Dense calls.
-            y = _fused_heads(self.variables["params"], x,
-                             ("zoom_score", "adj_score", "adj_bbox"))
-            zoom = y[..., 0:1]
-            adj = y[..., 1 : 1 + k]
-            delta = y[..., 1 + k :]
+        return {"zoom_score": 1, "adj_score": k, "adj_bbox": 4 * k}
+
+    def __call__(self, p, roi_feats, train: bool = False, rng=None):
+        k = self.num_templates
+        y = self._project(p, roi_feats, train, rng)
+        delta = y[..., 1 + k :]
         return {
-            "zoom": zoom[..., 0].astype(jnp.float32),
-            "adj_score": adj.astype(jnp.float32),
-            "adj_delta": delta.reshape(delta.shape[:-1] + (k, 4)).astype(jnp.float32),
+            "zoom": y[..., 0],
+            "adj_score": y[..., 1 : 1 + k],
+            "adj_delta": delta.reshape(delta.shape[:-1] + (k, 4)),
         }
 
 
-class FRCNNHead(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class FRCNNHead(_Head):
     """[R, P, P, C] roi features -> ``cls_score [R, C]``, ``bbox_pred [R, 4C]``."""
 
     num_classes: int = 21
-    fc_dim: int = 4096
-    fc7_dim: int = 0
-    dropout: float = 0.5
-    dtype: Any = jnp.bfloat16
-    int8_scales: tuple = ()
 
-    @nn.compact
-    def __call__(self, roi_feats, train: bool = False):
-        x = _FCStack(self.fc_dim, self.fc7_dim, self.dropout, self.dtype,
-                     self.int8_scales, name="fc")(roi_feats, train)
-        if self.is_initializing() or train:
-            cls = nn.Dense(self.num_classes, dtype=jnp.float32, name="cls_score",
-                           kernel_init=nn.initializers.normal(0.01))(x)
-            bbox = nn.Dense(4 * self.num_classes, dtype=jnp.float32, name="bbox_pred",
-                            kernel_init=nn.initializers.normal(0.001))(x)
-        else:
-            y = _fused_heads(self.variables["params"], x,
-                             ("cls_score", "bbox_pred"))
-            cls = y[..., : self.num_classes]
-            bbox = y[..., self.num_classes :]
-        return {"cls_score": cls.astype(jnp.float32), "bbox_pred": bbox.astype(jnp.float32)}
+    _OUTPUTS = (("cls_score", 0.01), ("bbox_pred", 0.001))
+
+    def _widths(self):
+        return {"cls_score": self.num_classes,
+                "bbox_pred": 4 * self.num_classes}
+
+    def __call__(self, p, roi_feats, train: bool = False, rng=None):
+        y = self._project(p, roi_feats, train, rng)
+        return {"cls_score": y[..., : self.num_classes],
+                "bbox_pred": y[..., self.num_classes :]}

@@ -26,11 +26,13 @@ reproduced exactly by max_pool((3,3),(2,2)) with low/high padding (0,1)
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
+
+from aznet_tpu.models.layers import Module, conv, conv_params, max_pool
 
 
 def lrn(x, size: int = 5, alpha: float = 1e-4, beta: float = 0.75,
@@ -55,11 +57,40 @@ def lrn(x, size: int = 5, alpha: float = 1e-4, beta: float = 0.75,
 
 def _pool3x2(x):
     """Caffe ceil-mode 3x3/2 max pool (see module docstring)."""
-    return nn.max_pool(x, (3, 3), strides=(2, 2),
-                       padding=((0, 1), (0, 1)))
+    return max_pool(x, (3, 3), (2, 2), padding=((0, 1), (0, 1)))
 
 
-class CaffeNetTrunk(nn.Module):
+class _ConvTrunk(Module):
+    """A chain of named convs + ReLU, each optionally followed by pools
+    and LRN. ``_LAYERS``: ``(name, kernel, stride, out, groups, after)``
+    where ``after`` lists "pool" / "lrn" steps in order."""
+
+    _LAYERS = ()
+
+    def _layers(self):
+        return self._LAYERS
+
+    def init_params(self, key, x) -> dict:
+        params, cin = {}, x.shape[-1]
+        for name, k, _, cout, groups, _ in self._layers():
+            params[name] = conv_params(key.child(name), k, k, cin, cout,
+                                       groups)
+            cin = cout
+        return params
+
+    def __call__(self, p, x):
+        x = x.astype(self.dtype)
+        for name, _, stride, _, groups, after in self._layers():
+            x = jax.nn.relu(conv(p[name], x, stride=stride, groups=groups,
+                                 dtype=self.dtype))
+            for step in after:
+                x = {"pool": _pool3x2, "lrn": lrn,
+                     "pool2": lambda y: max_pool(y, (2, 2), (2, 2))}[step](x)
+        return x
+
+
+@dataclasses.dataclass(frozen=True)
+class CaffeNetTrunk(_ConvTrunk):
     """AlexNet-style trunk (fast-rcnn's models/CaffeNet [M]).
 
     Input [..., H, W, 3] -> [..., H/16, W/16, 256].
@@ -70,32 +101,17 @@ class CaffeNetTrunk(nn.Module):
     feat_stride: int = 16
     out_channels: int = 256
 
-    @nn.compact
-    def __call__(self, x):
-        x = x.astype(self.dtype)
-        x = nn.Conv(96, (11, 11), strides=(4, 4), padding="SAME",
-                    dtype=self.dtype, name="conv1")(x)
-        x = nn.relu(x)
-        x = _pool3x2(x)
-        x = lrn(x)
-        x = nn.Conv(256, (5, 5), padding="SAME", feature_group_count=2,
-                    dtype=self.dtype, name="conv2")(x)
-        x = nn.relu(x)
-        x = _pool3x2(x)
-        x = lrn(x)
-        x = nn.Conv(384, (3, 3), padding="SAME", dtype=self.dtype,
-                    name="conv3")(x)
-        x = nn.relu(x)
-        x = nn.Conv(384, (3, 3), padding="SAME", feature_group_count=2,
-                    dtype=self.dtype, name="conv4")(x)
-        x = nn.relu(x)
-        x = nn.Conv(256, (3, 3), padding="SAME", feature_group_count=2,
-                    dtype=self.dtype, name="conv5")(x)
-        x = nn.relu(x)
-        return x
+    _LAYERS = (
+        ("conv1", 11, 4, 96, 1, ("pool", "lrn")),
+        ("conv2", 5, 1, 256, 2, ("pool", "lrn")),
+        ("conv3", 3, 1, 384, 1, ()),
+        ("conv4", 3, 1, 384, 2, ()),
+        ("conv5", 3, 1, 256, 2, ()),
+    )
 
 
-class VGGCNNM1024Trunk(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class VGGCNNM1024Trunk(_ConvTrunk):
     """VGG_CNN_M_1024 trunk (fast-rcnn's models/VGG_CNN_M_1024 [M]).
 
     Input [..., H, W, 3] -> [..., H/16, W/16, 512]. Pair with
@@ -107,32 +123,17 @@ class VGGCNNM1024Trunk(nn.Module):
     feat_stride: int = 16
     out_channels: int = 512
 
-    @nn.compact
-    def __call__(self, x):
-        x = x.astype(self.dtype)
-        x = nn.Conv(96, (7, 7), strides=(2, 2), padding="SAME",
-                    dtype=self.dtype, name="conv1")(x)
-        x = nn.relu(x)
-        x = lrn(x)
-        x = _pool3x2(x)
-        x = nn.Conv(256, (5, 5), strides=(2, 2), padding="SAME",
-                    dtype=self.dtype, name="conv2")(x)
-        x = nn.relu(x)
-        x = lrn(x)
-        x = _pool3x2(x)
-        x = nn.Conv(512, (3, 3), padding="SAME", dtype=self.dtype,
-                    name="conv3")(x)
-        x = nn.relu(x)
-        x = nn.Conv(512, (3, 3), padding="SAME", dtype=self.dtype,
-                    name="conv4")(x)
-        x = nn.relu(x)
-        x = nn.Conv(512, (3, 3), padding="SAME", dtype=self.dtype,
-                    name="conv5")(x)
-        x = nn.relu(x)
-        return x
+    _LAYERS = (
+        ("conv1", 7, 2, 96, 1, ("lrn", "pool")),
+        ("conv2", 5, 2, 256, 1, ("lrn", "pool")),
+        ("conv3", 3, 1, 512, 1, ()),
+        ("conv4", 3, 1, 512, 1, ()),
+        ("conv5", 3, 1, 512, 1, ()),
+    )
 
 
-class SmallTrunk(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class SmallTrunk(_ConvTrunk):
     """Input [..., H, W, 3] -> [..., H/16, W/16, out_channels]."""
 
     dtype: Any = jnp.bfloat16
@@ -141,18 +142,11 @@ class SmallTrunk(nn.Module):
     feat_stride: int = 16
     out_channels: int = 128
 
-    @nn.compact
-    def __call__(self, x):
-        x = x.astype(self.dtype)
+    def _layers(self):
         w = self.width
-        x = nn.Conv(w, (5, 5), strides=(2, 2), padding="SAME", dtype=self.dtype, name="conv1")(x)
-        x = nn.relu(x)
-        x = nn.max_pool(x, (2, 2), strides=(2, 2))
-        x = nn.Conv(w * 2, (3, 3), strides=(2, 2), padding="SAME", dtype=self.dtype, name="conv2")(x)
-        x = nn.relu(x)
-        x = nn.Conv(w * 2, (3, 3), padding="SAME", dtype=self.dtype, name="conv3")(x)
-        x = nn.relu(x)
-        x = nn.max_pool(x, (2, 2), strides=(2, 2))
-        x = nn.Conv(self.out_channels, (3, 3), padding="SAME", dtype=self.dtype, name="conv4")(x)
-        x = nn.relu(x)
-        return x
+        return (
+            ("conv1", 5, 2, w, 1, ("pool2",)),
+            ("conv2", 3, 2, w * 2, 1, ()),
+            ("conv3", 3, 1, w * 2, 1, ("pool2",)),
+            ("conv4", 3, 1, self.out_channels, 1, ()),
+        )

@@ -5,17 +5,19 @@ Reference equivalent: the VGG-16 prototxt trunk (models/VGG16/*, SURVEY.md
 (fast-rcnn uses conv5_3 at stride 16 for ROI pooling). Layer names mirror
 the prototxt (conv1_1, ...) so converted Caffe weights map 1:1.
 
-TPU notes: NHWC layout, bfloat16 compute / float32 params by default; the
-convs are the MXU workload — XLA fuses the ReLUs.
+NHWC layout, bfloat16 compute / float32 params by default; XLA fuses the
+bias and ReLU into each convolution.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
+
+from aznet_tpu.models.layers import Module, conv, conv_params, max_pool
 
 # (name, channels) per conv; 'pool' entries are 2x2/2 max pools.
 VGG16_LAYOUT = (
@@ -25,31 +27,30 @@ VGG16_LAYOUT = (
     ("conv4_1", 512), ("conv4_2", 512), ("conv4_3", 512), ("pool4", None),
     ("conv5_1", 512), ("conv5_2", 512), ("conv5_3", 512),
 )
+CONV_NAMES = tuple(n for n, ch in VGG16_LAYOUT if ch is not None)
 
 
 def conv1_1_s2d(x, kernel, bias, dtype):
-    """conv1_1 (3x3/s1, 3->64) as an EXACT space-to-depth-2 rewrite.
+    """conv1_1 (3x3/s1, 3->64) + ReLU as an EXACT space-to-depth-2 rewrite.
 
-    The stride-1 analog of the ResNet stem fix (models/resnet.py::StemConv,
-    DESIGN.md finding 25): a 3-channel contraction starves the 128-lane MXU
-    (K = 3 per tap), and conv1_1 runs at full 608x800 resolution — finding
-    12 measured the conv1 block at ~35 TF/s, ~35% of the bf16 trunk.
-    Rewrite: pack the input 2x2 -> [H/2, W/2, 12], run ONE 3x3 stride-1
-    conv producing all four output phases ([H/2, W/2, 4*64]), then
-    depth-to-space back. Term-identical math: output phase p's tap
-    dy = 2u + a - p for packed-row offset u and intra-cell row a, so each
-    original weight lands in exactly one packed-kernel slot and every other
-    slot is zero; zero-padding the packed borders reproduces SAME padding
-    (the extra original rows it implies only ever multiply zero weights).
-    4x the MACs (3/4 zeros) but K = 12 per tap at quarter spatial size —
-    fewer MXU passes when K < the 128-lane tile either way.
+    The stride-1 analog of the ResNet stem rewrite (models/resnet.py
+    ``StemConv``): a 3-channel contraction gives the matrix unit K = 3
+    per tap at full resolution. Rewrite: pack the input 2x2 ->
+    [H/2, W/2, 12], run ONE 3x3 stride-1 conv producing all four output
+    phases ([H/2, W/2, 4*64]), then depth-to-space back. Term-identical
+    math: output phase p's tap dy = 2u + a - p for packed-row offset u and
+    intra-cell row a, so each original weight lands in exactly one
+    packed-kernel slot and every other slot is zero; zero-padding the
+    packed borders reproduces SAME padding (the extra original rows it
+    implies only ever multiply zero weights). 4x the MACs (3/4 zeros) but
+    K = 12 per tap at quarter spatial size.
 
-    Parameters stay the nn.Conv layout ``kernel [3, 3, 3, 64]`` /
-    ``bias [64]`` — checkpoints and Caffe conversion untouched; the
-    re-layout happens in-jit. Requires even H and W (608x800 canvases).
+    Parameters stay the ``kernel [3, 3, 3, 64]`` / ``bias [64]`` layout —
+    checkpoints and Caffe conversion untouched; the re-layout happens
+    in-jit. Requires even H and W (608x800 canvases).
 
     Reference equivalent: none — the reference's conv1_1 is cuDNN's
-    problem (SURVEY.md §2.1; mount empty). TPU-new, exact.
+    problem (SURVEY.md §2.1). Exact.
     """
     b, h, w, c = x.shape
     co = kernel.shape[-1]
@@ -80,7 +81,12 @@ def conv1_1_s2d(x, kernel, bias, dtype):
     return y.transpose(0, 1, 3, 2, 4, 5).reshape(b, h, w, co)
 
 
-class VGG16Trunk(nn.Module):
+def _even_hw(x) -> bool:
+    return x.shape[-3] % 2 == 0 and x.shape[-2] % 2 == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class VGG16Trunk(Module):
     """Input [..., H, W, 3] (preprocessed BGR) -> [..., H/16, W/16, 512*width]."""
 
     dtype: Any = jnp.bfloat16
@@ -91,232 +97,108 @@ class VGG16Trunk(nn.Module):
     # ImageNet (fast-rcnn lineage lr_mult=0). Opt in via
     # cfg.TRAIN.FREEZE_PREFIXES=("conv1", "conv2") — see train/optim.py.
 
-    # Inference-only: run conv1_1+ReLU+conv1_2+ReLU+pool1 as one fused
-    # Pallas kernel (ops/pallas/conv1_kernel.py) — the block's 62 MB/image
-    # activations otherwise make it the trunk's HBM-traffic hot spot.
-    # Identical parameters/checkpoints; differentiating through it raises
-    # (no VJP), so training keeps the XLA convolutions.
-    fuse_conv1: bool = False
-
-    # Inference-only int8 path (ops/conv_int8.py): conv1_2..conv5_3 as
+    # Inference-only int8 path (ops/conv_int8.py): conv2_2..conv5_3 as
     # dx-packed int8 GEMMs with int32 accumulation; activations flow
-    # between layers as int8 (1 byte/el HBM). conv1_1 (K=27, MXU-hostile)
-    # stays in `dtype`. Identical parameters/checkpoints; requires
+    # between layers as int8. Identical parameters/checkpoints; requires
     # calibrated per-layer activation scales (ops/quant.py).
     int8_mode: bool = False
     int8_scales: tuple = ()
-    # "pallas" (chain kernels, zero XLA glue between layers — TPU),
-    # "pallas_strip" (per-layer strip kernel, for A/B), or "xla"
-    # (dx-pack GEMMs, portable).
-    int8_backend: str = "pallas"
-    # First chain layer ("conv2_2" | "conv1_2"); see config.py
-    # MODEL.INT8_CHAIN_FROM.
-    int8_chain_from: str = "conv2_2"
 
-    # conv1_1 as the exact s2d-2 rewrite (module docstring of
-    # :func:`conv1_1_s2d`); applies to both the bf16 and int8-prefix paths
-    # when H/W are even. Identical math/checkpoints; A/B knob
-    # cfg.MODEL.CONV1_S2D / bench_trunk --variants bf16_s2d.
+    # conv1_1 as the exact s2d-2 rewrite (:func:`conv1_1_s2d`); applies to
+    # both the bf16 and int8-prefix paths when H/W are even. Identical
+    # math/checkpoints; cfg.MODEL.CONV1_S2D.
     conv1_s2d: bool = False
 
     feat_stride: int = 16
 
     @property
     def out_channels(self) -> int:
-        return max(int(512 * self.width), 8)
+        return self._channels(512)
 
-    # Layers kept in bf16 even in int8 mode (measured round 3 on v5e):
-    # conv1_1 has a 3-channel K=27 input; conv1_2/conv2_1 have C=64, which
-    # the 128-lane int8 MXU pads 2x (Pallas kernel measured 49 vs XLA bf16
-    # 84 T/s at conv2_1). Int8 starts at conv2_2 where every K >= 128
-    # (kernel wins: conv3 214 vs 147, conv4 262 vs 216 T/s).
+    def _channels(self, ch: int) -> int:
+        return max(int(ch * self.width), 8)
+
+    # Layers kept in `dtype` in int8 mode: conv1_1 has a 3-channel K=27
+    # input and conv1_2/conv2_1 have 64 input channels, too shallow a
+    # contraction for int8 GEMMs to pay; int8 starts at conv2_2.
     _INT8_BF16_PREFIX = ("conv1_1", "conv1_2", "conv2_1")
 
-    def _int8_forward(self, x):
-        """Hybrid trunk: bf16 conv1 block + conv2_1, int8 GEMM convs after
-        (post-init apply only)."""
+    def init_params(self, key, x) -> dict:
+        params, cin = {}, x.shape[-1]
+        for name, ch in VGG16_LAYOUT:
+            if ch is not None:
+                cout = self._channels(ch)
+                params[name] = conv_params(key.child(name), 3, 3, cin, cout)
+                cin = cout
+        return params
+
+    def __call__(self, p, x, taps: dict | None = None):
+        """``taps``, when given, receives each conv's pre-ReLU output by
+        layer name (int8 calibration, ops/quant.py)."""
+        if self.int8_mode:
+            return self._int8_forward(p, x)
+        x = x.astype(self.dtype)
+        for name, ch in VGG16_LAYOUT:
+            if ch is None:
+                x = max_pool(x, (2, 2), (2, 2))
+            elif (name == "conv1_1" and self.conv1_s2d and taps is None
+                  and _even_hw(x)):
+                squeeze = x.ndim == 3
+                xb = x[None] if squeeze else x
+                xb = conv1_1_s2d(xb, p[name]["kernel"], p[name]["bias"],
+                                 self.dtype)
+                x = xb[0] if squeeze else xb
+            else:
+                y = conv(p[name], x, dtype=self.dtype)
+                if taps is not None:
+                    taps[name] = y
+                x = jax.nn.relu(y)
+        return x
+
+    def _int8_forward(self, p, x):
+        """Hybrid trunk: `dtype` conv1 block + conv2_1, int8 GEMM convs
+        after."""
         from aznet_tpu.ops.conv_int8 import conv3x3_int8, quantize_acts, \
             quantize_weights
 
-        conv_names = [n for n, ch in VGG16_LAYOUT if ch is not None]
-        if len(self.int8_scales) < len(conv_names) - 1:
+        if len(self.int8_scales) < len(CONV_NAMES) - 1:
             raise ValueError(
                 "int8 trunk needs MODEL.INT8_SCALES for conv1_1..conv5_2 "
                 "(run aznet_tpu.ops.quant.calibrate_trunk_int8 first); got "
                 f"{len(self.int8_scales)} scales")
-        scales = dict(zip(conv_names, self.int8_scales))
-        p = self.variables["params"]
-        # AZNET_INT8_INTERPRET=1: run the Pallas paths in interpreter mode
-        # off-TPU so CI covers the real chain walk (tests/test_int8.py).
-        import os
-        interp = jax.default_backend() != "tpu"
-        use_pallas = (self.int8_backend in ("pallas", "pallas_strip")
-                      and (not interp
-                           or os.environ.get("AZNET_INT8_INTERPRET") == "1"))
-        if use_pallas:
-            from aznet_tpu.ops.pallas.conv_int8_kernel import (
-                conv3x3_int8_pallas, pack_weights_9)
-            from aznet_tpu.ops.pallas.conv_int8_chain import (
-                conv3x3_int8_chain, halo_layout)
-
+        scales = dict(zip(CONV_NAMES, self.int8_scales))
+        prefix = self._INT8_BF16_PREFIX
         squeeze = x.ndim == 3
         if squeeze:
             x = x[None]
         x = x.astype(self.dtype)
         s_x = None
-        prefix = self._INT8_BF16_PREFIX
-        # Chain mode (default "pallas" backend): int8 activations flow
-        # between kernels in the haloed layout — no XLA pad/slice passes,
-        # pools fused into the preceding conv's epilogue (the per-layer
-        # glue that made the hybrid trunk LOSE end-to-end in round 3,
-        # DESIGN.md finding 15b). Needs every chain input C % 128 == 0;
-        # "pallas_strip" keeps the per-layer strip kernel for A/B.
-        if self.int8_chain_from not in ("conv2_2", "conv1_2"):
-            raise ValueError(
-                f"MODEL.INT8_CHAIN_FROM must be 'conv2_2' or 'conv1_2', "
-                f"got {self.int8_chain_from!r}")
-        chain = (use_pallas and self.int8_backend == "pallas"
-                 and all(max(int(ch * self.width), 8) % 128 == 0
-                         for n, ch in VGG16_LAYOUT
-                         if ch is not None and n not in prefix[:-1]))
-        # Extended chain: only conv1_1 stays bf16; conv1_2/conv2_1 run int8
-        # with their 64 channels zero-padded to the 128-lane layout (padded
-        # MACs, but conv1_2 is HBM-bound in bf16 — see INT8_CHAIN_FROM).
-        chain_ext = (chain and self.int8_chain_from == "conv1_2"
-                     and max(int(64 * self.width), 8) == 64)
-        if chain_ext:
-            prefix = ("conv1_1",)
-        # The chain walk assumes no pool entry directly follows the last
-        # bf16 prefix conv (true for both shipped prefixes): after the
-        # quantize+halo entry, the generic pool branch below would pool
-        # the HALOED layout and silently corrupt activations.
-        if chain:
-            names = [n for n, _ in VGG16_LAYOUT]
-            nxt = names.index(prefix[-1]) + 1
-            if nxt < len(names) and dict(VGG16_LAYOUT)[names[nxt]] is None:
-                raise ValueError(
-                    f"int8 chain: a pool directly follows the bf16 prefix "
-                    f"end {prefix[-1]!r}; extend the prefix past the pool")
-        h = w = None
-        entries = list(VGG16_LAYOUT)
-        i = 0
-        while i < len(entries):
-            name, ch = entries[i]
-            i += 1
+        for name, ch in VGG16_LAYOUT:
             if ch is None:
-                x = nn.max_pool(x, (2, 2), strides=(2, 2))
+                x = max_pool(x, (2, 2), (2, 2))
                 continue
             if name in prefix:
-                if (name == "conv1_1" and self.conv1_s2d
-                        and x.shape[-3] % 2 == 0 and x.shape[-2] % 2 == 0):
+                if name == "conv1_1" and self.conv1_s2d and _even_hw(x):
                     y = conv1_1_s2d(x, p[name]["kernel"], p[name]["bias"],
                                     self.dtype)
                 else:
-                    k = p[name]["kernel"].astype(self.dtype)
                     y = jax.lax.conv_general_dilated(
-                        x, k, (1, 1), "SAME",
-                        dimension_numbers=("NHWC", "HWIO", "NHWC"),
+                        x, p[name]["kernel"].astype(self.dtype), (1, 1),
+                        "SAME", dimension_numbers=("NHWC", "HWIO", "NHWC"),
                         preferred_element_type=jnp.float32)
                     y = jnp.maximum(y + p[name]["bias"], 0.0)
-                if name == prefix[-1]:  # quantize into the int8 chain
+                if name == prefix[-1]:  # quantize into the int8 layers
                     s_x = scales[name]
                     x = quantize_acts(y, s_x)
-                    if chain:
-                        h, w = x.shape[-3], x.shape[-2]
-                        if x.shape[-1] % 128:  # chain_ext: 64 -> 128 lanes
-                            x = jnp.pad(x, ((0, 0),) * (x.ndim - 1)
-                                        + ((0, 128 - x.shape[-1]),))
-                        x = halo_layout(x)
                 else:
                     x = y.astype(self.dtype)
                 continue
-            kern = p[name]["kernel"].astype(jnp.float32)
-            bias = p[name]["bias"].astype(jnp.float32)
             # conv5_3 is the trunk output: emit `dtype`, never requantize.
-            s_out = scales.get(name) if name != conv_names[-1] else None
-            if chain:
-                if chain_ext and kern.shape[2] < 128:
-                    # zero input-channel rows for the lane-padded layout
-                    kern = jnp.pad(
-                        kern, ((0, 0), (0, 0), (0, 128 - kern.shape[2]),
-                               (0, 0)))
-                if chain_ext and name == "conv1_2" and kern.shape[3] < 128:
-                    # zero output channels so the chain stays 128 lanes;
-                    # zero weights + zero bias -> requant keeps them zero
-                    pad_co = 128 - kern.shape[3]
-                    kern = jnp.pad(kern, ((0, 0),) * 3 + ((0, pad_co),))
-                    bias = jnp.pad(bias, (0, pad_co))
-                w_q9, s_w = pack_weights_9(kern)
-                if s_out is None:  # chain exit: compact rows, slice to h
-                    x = conv3x3_int8_chain(
-                        x, s_x, w_q9, s_w, bias, h, w, s_out=None,
-                        out_dtype=self.dtype, interpret=interp)[:, :h]
-                else:
-                    pool_next = i < len(entries) and entries[i][1] is None
-                    # fused pool needs even dims (608x800-style canvases);
-                    # odd dims (600x800 exact) fall back to an XLA pool +
-                    # re-halo pass, matching nn.max_pool's floor semantics.
-                    fuse = pool_next and h % 2 == 0 and w % 2 == 0
-                    x = conv3x3_int8_chain(x, s_x, w_q9, s_w, bias, h, w,
-                                           s_out=s_out, pool=fuse,
-                                           interpret=interp)
-                    if pool_next:
-                        i += 1  # the pool entry is consumed either way
-                        if fuse:
-                            h, w = h // 2, w // 2
-                        else:
-                            d = nn.max_pool(x[:, :h, 1 : 1 + w], (2, 2),
-                                            strides=(2, 2))
-                            h, w = h // 2, w // 2
-                            x = halo_layout(d)
-                    s_x = s_out
-                continue
-            if use_pallas:
-                w_q9, s_w = pack_weights_9(kern)
-                x = conv3x3_int8_pallas(x, s_x, w_q9, s_w, bias,
-                                        s_out=s_out, out_dtype=self.dtype,
-                                        interpret=interp)
-            else:
-                w_q, s_w = quantize_weights(kern)
-                x = conv3x3_int8(x, s_x, w_q, s_w, bias,
-                                 s_out=s_out, out_dtype=self.dtype)
+            s_out = scales[name] if name != CONV_NAMES[-1] else None
+            w_q, s_w = quantize_weights(p[name]["kernel"].astype(jnp.float32))
+            x = conv3x3_int8(x, s_x, w_q, s_w,
+                             p[name]["bias"].astype(jnp.float32),
+                             s_out=s_out, out_dtype=self.dtype)
             if s_out is not None:
                 s_x = s_out
         return x[0] if squeeze else x
-
-    @nn.compact
-    def __call__(self, x):
-        if self.int8_mode and not self.is_initializing():
-            return self._int8_forward(x)
-        x = x.astype(self.dtype)
-        layout = VGG16_LAYOUT
-        if (self.fuse_conv1 and not self.is_initializing()
-                and x.shape[-3] % 32 == 0 and x.shape[-2] % 2 == 0
-                and jax.default_backend() == "tpu"):
-            from aznet_tpu.ops.pallas.conv1_kernel import fused_conv1_pool
-
-            p = self.variables["params"]
-            squeeze = x.ndim == 3
-            xb = x[None] if squeeze else x
-            xb = fused_conv1_pool(
-                xb, p["conv1_1"]["kernel"], p["conv1_1"]["bias"],
-                p["conv1_2"]["kernel"], p["conv1_2"]["bias"])
-            x = xb[0] if squeeze else xb
-            layout = VGG16_LAYOUT[3:]  # conv1_1, conv1_2, pool1 done
-        for name, ch in layout:
-            if ch is None:
-                x = nn.max_pool(x, (2, 2), strides=(2, 2))
-            else:
-                ch = max(int(ch * self.width), 8)
-                if (name == "conv1_1" and self.conv1_s2d
-                        and not self.is_initializing()
-                        and x.shape[-3] % 2 == 0 and x.shape[-2] % 2 == 0):
-                    p = self.variables["params"]["conv1_1"]
-                    squeeze = x.ndim == 3
-                    xb = x[None] if squeeze else x
-                    xb = conv1_1_s2d(xb, p["kernel"], p["bias"], self.dtype)
-                    x = xb[0] if squeeze else xb
-                    continue
-                x = nn.Conv(ch, (3, 3), padding="SAME", name=name, dtype=self.dtype)(x)
-                x = nn.relu(x)
-        return x

@@ -1,6 +1,6 @@
 """Core tensor ops: box codecs, IoU, NMS, ROI pooling, preprocessing, losses.
 
-TPU-native equivalents of the reference's native layer (SURVEY.md §2.3):
+Device equivalents of the reference's native layer (SURVEY.md §2.3):
 Cython ``bbox_overlaps``/``nms`` and CUDA ``ROIPooling``/``SmoothL1Loss``
 become vectorized JAX (jit-fused by XLA) plus Pallas kernels for the hot
 paths. Caffe's "+1" width/area conventions are preserved behind an ``offset``

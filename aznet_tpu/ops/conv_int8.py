@@ -1,15 +1,15 @@
-"""Int8 3x3 conv expressed as dx-packed shifted GEMMs (the TPU int8 path).
+"""Int8 3x3 conv expressed as dx-packed shifted GEMMs (the int8 trunk).
 
-Why this exists (DESIGN.md finding 10): on v5e the MXU runs int8 matmuls at
-~272 TOPS vs ~152 TFLOP/s bf16, but XLA's int8 *convolutions* only gain
-15-23% at VGG shapes. The fix is to express the conv as matmuls ourselves:
+Int8 GEMMs run at twice the bf16 tensor-core rate on the H100 (data
+sheet), but XLA's int8 *convolutions* are a separate path; this module
+expresses the conv as matmuls instead:
 
   conv3x3(x, w) = sum_dy  X_cat[:, dy:dy+H] @ W[dy]
 
 where ``X_cat [B, H+2, W, 3C]`` concatenates the three dx-shifted copies of
 the (zero-padded) input along channels, and ``W[dy] [3C, Cout]`` flattens
 the (dx, Cin) axes of the kernel. Each of the 3 dots has K = 3*Cin >= 192
-and M = H*W — large, static, MXU-shaped — and accumulates in int32.
+and M = H*W — large and static — and accumulates in int32.
 
 Quantization scheme (inference-only):
   - symmetric, zero-point 0 (so zero-padding is exact)
@@ -23,7 +23,7 @@ Quantization scheme (inference-only):
 
 Reference equivalent: the Caffe VGG-16 conv layers this replaces
 (SURVEY.md §2.1 "AZ network definitions"; mount empty — no file:line
-exists). The reference has no quantized path at all; this is TPU-new.
+exists). The reference has no quantized path at all.
 """
 
 from __future__ import annotations
@@ -92,9 +92,8 @@ def quantize_weights_1x1(w: jnp.ndarray):
 
     Per-output-channel symmetric scales, same scheme as
     :func:`quantize_weights` — but a 1x1 conv needs no dx/dy packing at
-    all: it IS a matmul, so the int8 MXU gets it with zero extra HBM
-    traffic (the packing that made the XLA 3x3 path lose end-to-end,
-    DESIGN.md finding 13, does not exist here).
+    all: it IS a matmul, so the int8 GEMM needs zero extra HBM traffic
+    (the 3x3 path's dx packing does not exist here).
     """
     w2 = w.reshape(w.shape[-2], w.shape[-1])
     s = jnp.maximum(jnp.max(jnp.abs(w2), axis=0) / INT8_MAX, 1e-12)

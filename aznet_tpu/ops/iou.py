@@ -2,9 +2,8 @@
 
 Reference equivalent (SURVEY.md §2.3): the Cython ``bbox_overlaps`` in
 ``lib/utils/bbox.pyx`` (module ``cython_bbox``) — an O(N*K) nested host loop.
-Here it is a broadcasted, jit-fusable jnp computation; XLA tiles it onto the
-VPU. For very large N*K a Pallas-tiled variant lives in
-``aznet_tpu.ops.pallas.iou_kernel``.
+Here it is a broadcasted, jit-fusable jnp computation that XLA fuses into
+one kernel.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Reference equivalents (SURVEY.md §2.3): Caffe's CUDA ``SmoothL1LossLayer``
 (with inside-weights masking) and the prototxt-defined sigmoid cross-entropy
-/ softmax losses. On TPU these are a few fused VPU ops — no kernels needed.
+/ softmax losses. These are a few fused elementwise ops — no kernels needed.
 """
 
 from __future__ import annotations

@@ -2,20 +2,19 @@
 
 Reference equivalent (SURVEY.md §2.3): the Cython CPU greedy NMS in
 ``lib/utils/nms.pyx`` (+ pure-Python ``nms.py`` fallback) — inherently
-sequential host code, one box at a time. The TPU-native design:
+sequential host code, one box at a time. The device design:
 
 - ``nms``        — host NumPy greedy, bit-parity oracle for eval/tests
                    (C++ fast path via aznet_tpu.utils.native when built).
-- ``nms_jax``    — exact greedy NMS on device, formulated as an antitone
-                   fixpoint over the suppression matrix: ``keep =
-                   ~any(S & keep)`` iterated to convergence. Each iteration
-                   is one masked (N,N) reduction (VPU-friendly); iterations
-                   needed = depth of the suppression DAG (typically < 8),
-                   bounded by N. Fully jit/vmap-able, static shapes.
-- ``nms_topk``   — nms_jax + top-k extraction with padding, for pipelines.
-
-A Pallas-tiled variant for very large N lives in
-``aznet_tpu.ops.pallas.nms_kernel`` (the BASELINE "NMS Mboxes/sec" metric).
+- ``nms_mask``   — exact greedy NMS on device: an antitone fixpoint over
+                   the suppression matrix (``keep = ~any(S & keep)``
+                   iterated to convergence; one masked (N,N) reduction per
+                   sweep, sweeps = depth of the suppression DAG), or the
+                   blocked-bitmask Triton kernels
+                   (``aznet_tpu.ops.pallas.nms_triton``). Fully
+                   jit/vmap-able, static shapes.
+- ``nms_jax``    — ``nms_mask`` on ``[N, 5]`` dets.
+- ``nms_topk``   — nms_mask + top-k extraction with padding, for pipelines.
 
 Convention notes (parity with the reference): "+1" areas via ``offset``;
 suppression is strict ``IoU > thresh`` (the Cython code keeps ``ovr <=
@@ -32,6 +31,7 @@ import jax
 import jax.numpy as jnp
 
 from aznet_tpu.ops.iou import bbox_overlaps
+from aznet_tpu.utils import device
 
 
 # ---------------------------------------------------------------------------
@@ -77,90 +77,83 @@ def nms(dets: np.ndarray, thresh: float, offset: float = 1.0) -> list:
 # ---------------------------------------------------------------------------
 
 
-def _pallas_profitable(n: int) -> bool:
-    """Use the Pallas kernel on real TPUs for large N.
-
-    The fixpoint's cost is data-dependent (iterations = suppression-DAG
-    depth): measured 128 ms vs 7 ms for the kernel on 32x2048 diverse boxes
-    (worst case), near-equal on degenerate boxes. Below ~2 tiles the padding
-    overhead eats the win; off-TPU the kernel would run interpreted.
-    """
-    try:
-        backend_is_tpu = jax.default_backend() == "tpu"
-    except RuntimeError:  # backend not initialized / unavailable
-        backend_is_tpu = False
-    return backend_is_tpu and n >= 512
-
-
-def nms_mask(boxes, scores, iou_threshold, valid=None, offset: float = 1.0,
-             impl: str = "auto", order_mode: "str | None" = None):
-    """Exact greedy-NMS keep mask, in the ORIGINAL box order.
-
-    ``boxes [N, 4]``, ``scores [N]``, optional ``valid [N]`` bool mask for
-    padded inputs. Returns ``keep [N]`` bool. jit/vmap-safe, static shapes.
-
-    ``impl``: 'auto' (Pallas kernel on TPU for N >= 512, else the fixpoint),
-    'fixpoint', or 'pallas'. Both are exact greedy (tested equal).
-    ``order_mode`` (pallas impl): 'argsort' | 'intkey' | 'bitonic' — how
-    the score-descending permutation is derived (identical keep sets AND
-    identical order, hardware-pinned by tpu_checks
-    nms_{intkey,bitonic}_vs_argsort_order; the XLA-side sort is ~2/3 of
-    the wrapper cost at serving shapes, DESIGN findings 20/23/28).
-    Default: env ``AZNET_NMS_ORDER`` or 'bitonic' — ordering happens
-    inside a Pallas kernel (a bitonic network over (intkey, index) pairs
-    carrying the coordinate planes), measured 36.2 vs intkey's 22.1
-    Mboxes/s at 16x4096 (finding 28); float64 scores fall back to the
-    stable argsort inside the kernel wrapper to keep the order contract.
-    NOTE: the env var is read at TRACE time — a jitted caller captures it
-    per jit cache entry, so flipping ``AZNET_NMS_ORDER`` after a program
-    has compiled does not affect that compiled program (clear the jit
-    cache or pass ``order_mode`` explicitly to A/B inside one process).
-
-    Fixpoint algorithm: sort by score desc; build the strict-lower-triangular
-    suppression matrix ``S[i, j] = (j < i) & (IoU > t)``; iterate the
-    antitone map ``keep <- ~any_j(S[:, j] & keep[j])`` from all-ones until
-    fixpoint. By induction on sorted order the fixpoint is exactly the
-    greedy solution; convergence takes at most the suppression-DAG depth
-    iterations (bounded by N).
-    """
-    n = boxes.shape[0]
-    if impl == "auto":
-        impl = "pallas" if _pallas_profitable(n) else "fixpoint"
-    if impl == "pallas":
-        import os
-
-        from aznet_tpu.ops.pallas.nms_kernel import nms_pallas
-
-        if order_mode is None:
-            order_mode = os.environ.get("AZNET_NMS_ORDER", "bitonic")
-        return nms_pallas(boxes, scores, iou_threshold, valid=valid,
-                          offset=offset, order_mode=order_mode)
-    if valid is None:
-        valid = jnp.ones((n,), dtype=bool)
-    neg_inf = jnp.asarray(-jnp.inf, scores.dtype)
-    s = jnp.where(valid, scores, neg_inf)
-    order = jnp.argsort(-s, stable=True)
-    sboxes = boxes[order]
-    svalid = valid[order]
-
+def _fixpoint_sorted(sboxes, svalid, iou_threshold, offset: float):
+    """Fixpoint keep mask over score-sorted boxes -> (keep, iterations)."""
+    n = sboxes.shape[0]
     iou = bbox_overlaps(sboxes, sboxes, offset=offset)
     tri = jnp.tril(jnp.ones((n, n), dtype=bool), k=-1)  # [i, j]: j before i
     supp = tri & (iou > iou_threshold) & svalid[None, :] & svalid[:, None]
 
     def cond(state):
-        keep, prev_changed = state
-        return prev_changed
+        return state[1]
 
     def body(state):
-        keep, _ = state
+        keep, _, it = state
         new_keep = ~jnp.any(supp & keep[None, :], axis=1) & svalid
-        return new_keep, jnp.any(new_keep != keep)
+        return new_keep, jnp.any(new_keep != keep), it + 1
 
-    keep0 = svalid
-    keep_sorted, _ = jax.lax.while_loop(cond, body, (keep0, jnp.asarray(True)))
+    keep, _, iters = jax.lax.while_loop(
+        cond, body, (svalid, jnp.asarray(True), jnp.int32(0)))
+    return keep, iters
+
+
+def _score_order(scores, valid):
+    """Stable descending-score order with invalid boxes last."""
+    neg_inf = jnp.asarray(-jnp.inf, scores.dtype)
+    return jnp.argsort(-jnp.where(valid, scores, neg_inf), stable=True)
+
+
+def nms_mask(boxes, scores, iou_threshold, valid=None, offset: float = 1.0,
+             impl: str = "auto", interpret: bool = False):
+    """Exact greedy-NMS keep mask, in the ORIGINAL box order.
+
+    ``boxes [N, 4]``, ``scores [N]``, optional ``valid [N]`` bool mask for
+    padded inputs. Returns ``keep [N]`` bool. jit/vmap-safe, static shapes.
+
+    ``impl``: 'auto' (``utils/device.py::nms_impl`` chooses), 'fixpoint',
+    or 'triton' (``ops/pallas/nms_triton.py``: blocked suppression bitmask
+    + one sequential scan, Pallas through Triton; ``interpret=True`` runs
+    it on the CPU, for tests). Both are exact greedy (tested equal).
+
+    Both sort by score in XLA first (stable, invalid last) and scatter the
+    sorted keep mask back. Fixpoint algorithm: build the
+    strict-lower-triangular suppression matrix ``S[i, j] = (j < i) &
+    (IoU > t)``; iterate the antitone map ``keep <- ~any_j(S[:, j] &
+    keep[j])`` from all-ones until fixpoint. By induction on sorted order
+    the fixpoint is exactly the greedy solution; convergence takes at most
+    the suppression-DAG depth iterations (bounded by N), so its cost
+    depends on the data.
+    """
+    n = boxes.shape[0]
+    if impl == "auto":
+        impl = device.nms_impl()
+    if valid is None:
+        valid = jnp.ones((n,), dtype=bool)
+    order = _score_order(scores, valid)
+    sboxes = boxes[order]
+    svalid = valid[order]
+    if impl == "triton":
+        from aznet_tpu.ops.pallas.nms_triton import nms_sorted_triton
+
+        keep_sorted = nms_sorted_triton(sboxes, svalid, iou_threshold,
+                                        offset, interpret=interpret)
+    elif impl == "fixpoint":
+        keep_sorted, _ = _fixpoint_sorted(sboxes, svalid, iou_threshold,
+                                          offset)
+    else:
+        raise ValueError(f"unknown NMS impl {impl!r}")
     # Scatter back to original order.
-    keep = jnp.zeros((n,), dtype=bool).at[order].set(keep_sorted)
-    return keep
+    return jnp.zeros((n,), dtype=bool).at[order].set(keep_sorted)
+
+
+def fixpoint_iterations(boxes, scores, iou_threshold, valid=None,
+                        offset: float = 1.0):
+    """Sweeps the fixpoint takes to converge on these boxes (int32)."""
+    if valid is None:
+        valid = jnp.ones((boxes.shape[0],), dtype=bool)
+    order = _score_order(scores, valid)
+    return _fixpoint_sorted(boxes[order], valid[order], iou_threshold,
+                            offset)[1]
 
 
 def nms_jax(dets, thresh, valid=None, offset: float = 1.0):

@@ -1,11 +1,8 @@
-"""Pallas TPU kernels for the hot ops.
+"""Hand-written Pallas kernels for the GPU (``backend="triton"``).
 
-Reference equivalents (SURVEY.md §2.3): the Cython NMS and CUDA ROIPooling —
-the reference's "native layer". On TPU the native layer is Pallas: kernels
-here fuse work into VMEM-resident tiles instead of host loops/CUDA blocks.
-All kernels have interpret-mode fallbacks so the CPU test suite validates
-them against the pure-JAX/host oracles.
+Reference equivalents (SURVEY.md §2.3): the reference's "native layer" —
+the CUDA NMS kernel. Each kernel keeps a plain-JAX version beside it as its
+reference, and runs in interpret mode in the CPU tests.
 """
 
-from aznet_tpu.ops.pallas.nms_kernel import nms_pallas
-from aznet_tpu.ops.pallas.iou_kernel import bbox_overlaps_pallas
+from aznet_tpu.ops.pallas.nms_triton import nms_sorted_triton

@@ -6,7 +6,7 @@ so the shortest side hits ``target_size`` capped by ``max_size``) and
 ``im_list_to_blob`` (pad to the batch max). The reference does this per-image
 on host with OpenCV; here the resize + mean-subtract is a single fused,
 jit-able gather computation with a *static* output canvas and a *dynamic*
-per-image scale — the TPU-native answer to variable image sizes (XLA needs
+per-image scale — the static-shape answer to variable image sizes (XLA needs
 static shapes; the scale is data, the canvas is shape).
 
 Convention: images are HWC **BGR** float32 (matching Caffe's cv2.imread
@@ -58,8 +58,8 @@ def resize_bilinear_scale(im, scale, out_h: int, out_w: int, pad_value=0.0,
     valid_h = jnp.round(h * scale).astype(jnp.int32)
     valid_w = jnp.round(w * scale).astype(jnp.int32)
 
-    # Separable bilinear interpolation as two dense matmuls (MXU path —
-    # gathers are the slow path on TPU). Weight rows: triangle kernel
+    # Separable bilinear interpolation as two dense matmuls instead of
+    # gathers. Weight rows: triangle kernel
     # relu(1 - |src_pos - cell|); clipped positions keep row sums at 1.
     ys = jnp.clip((jnp.arange(out_h, dtype=jnp.float32) + 0.5) / scale - 0.5,
                   0.0, h - 1.0)
@@ -72,9 +72,9 @@ def resize_bilinear_scale(im, scale, out_h: int, out_w: int, pad_value=0.0,
     wy = (wy * (jnp.arange(out_h)[:, None] < valid_h)).astype(compute_dtype)
     wx = (wx * (jnp.arange(out_w)[:, None] < valid_w)).astype(compute_dtype)
 
-    # compute_dtype=bfloat16 runs ~30x faster on the MXU (f32 matmul is
-    # emulated there) at <1 pixel-value error — the right default whenever
-    # the consuming trunk computes in bf16 anyway.
+    # compute_dtype=bfloat16 runs on the tensor cores at <1 pixel-value
+    # error — the right default whenever the consuming trunk computes in
+    # bf16 anyway.
     #
     # Layout: fold C into the non-contracted dim of each pass so both passes
     # are plain [M,K]x[K,N] matmuls with large N. The naive einsum
@@ -175,7 +175,7 @@ def _resize_bilinear_np(im: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
 def im_list_to_blob(ims: list) -> np.ndarray:
     """Pad a list of HWC float32 images to the batch max -> [N, H, W, C].
 
-    NHWC (TPU-native layout) where the reference produced NCHW.
+    NHWC (the layout the models use) where the reference produced NCHW.
     """
     max_shape = np.array([im.shape for im in ims]).max(axis=0)
     blob = np.zeros((len(ims), max_shape[0], max_shape[1], ims[0].shape[2]), np.float32)

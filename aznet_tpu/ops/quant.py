@@ -1,7 +1,7 @@
 """Post-training int8 calibration for the VGG trunk.
 
-Runs the bf16 trunk on calibration images, captures every conv layer's
-pre-ReLU output via flax ``capture_intermediates``, and derives one static
+Runs the bf16 trunk on calibration images, reads every conv layer's
+pre-ReLU output (the trunk's calibration taps), and derives one static
 symmetric scale per layer from the post-ReLU absolute-max (optionally a
 percentile, which clips rare outliers for tighter quantization grids).
 
@@ -15,7 +15,7 @@ net is a pure config swap:
     net8 = build_az_net(cfg8, params=net.params)
 
 Reference equivalent: none — the reference (Caffe VGG-16, SURVEY.md §2.1)
-has no quantized inference path; this is TPU-new (DESIGN.md finding 10).
+has no quantized inference path (DESIGN.md finding 10).
 """
 
 from __future__ import annotations
@@ -28,9 +28,7 @@ import numpy as np
 import jax.numpy as jnp
 
 from aznet_tpu.config import Config
-from aznet_tpu.models.vgg import VGG16_LAYOUT
-
-CONV_NAMES = tuple(n for n, ch in VGG16_LAYOUT if ch is not None)
+from aznet_tpu.models.vgg import CONV_NAMES
 
 
 def calibrate_trunk_int8(net, images, percentile: float = 100.0,
@@ -49,31 +47,26 @@ def calibrate_trunk_int8(net, images, percentile: float = 100.0,
 
     images = np.asarray(images, np.float32)
     maxes = {n: 0.0 for n in CONV_NAMES}
-    filt = lambda mdl, _: getattr(mdl, "name", None) in CONV_NAMES
+
+    # taps = pre-ReLU conv outputs; the quantized tensor is post-ReLU, so
+    # only the positive side sets the scale.
+    def relu_taps(params, chunk):
+        taps = net.model.apply(params, chunk, method="trunk_taps")
+        return {n: jnp.maximum(taps[n].astype(jnp.float32), 0.0)
+                for n in CONV_NAMES}
 
     @jax.jit
     def captured_max(params, chunk):
-        # One compiled program per chunk shape; on the remote TPU an eager
-        # capture run would pay per-op dispatch latency thousands of times.
-        _, inter = net.model.apply(params, chunk, method="features",
-                                   capture_intermediates=filt)
-        flat = _flatten_intermediates(inter["intermediates"])
-        # captured = pre-ReLU conv output; the quantized tensor is
-        # post-ReLU, so only the positive side sets the scale.
-        return {n: jnp.max(jnp.maximum(flat[n].astype(jnp.float32), 0.0))
-                for n in CONV_NAMES}
+        return {n: jnp.max(t) for n, t in relu_taps(params, chunk).items()}
 
     use_pct = percentile < 100.0
     for start in range(0, images.shape[0], batch_size):
         chunk = jnp.asarray(images[start : start + batch_size])
         if use_pct:
-            _, inter = net.model.apply(net.params, chunk, method="features",
-                                       capture_intermediates=filt)
-            flat = _flatten_intermediates(inter["intermediates"])
+            taps = jax.device_get(jax.jit(relu_taps)(net.params, chunk))
             for name in CONV_NAMES:
-                y = np.maximum(np.asarray(flat[name], np.float32), 0.0)
-                maxes[name] = max(maxes[name],
-                                  float(np.percentile(y, percentile)))
+                maxes[name] = max(maxes[name], float(
+                    np.percentile(np.asarray(taps[name]), percentile)))
         else:
             m = jax.device_get(captured_max(net.params, chunk))
             for name in CONV_NAMES:
@@ -81,25 +74,11 @@ def calibrate_trunk_int8(net, images, percentile: float = 100.0,
     return tuple(max(maxes[n], 1e-6) / 127.0 for n in CONV_NAMES)
 
 
-def _flatten_intermediates(tree, out=None):
-    """{'trunk': {'conv1_1': {'__call__': (y,)}}} -> {'conv1_1': y}."""
-    if out is None:
-        out = {}
-    for k, v in tree.items():
-        if k == "__call__":
-            continue
-        if k in CONV_NAMES:
-            out[k] = v["__call__"][0]
-        elif isinstance(v, dict) or hasattr(v, "items"):
-            _flatten_intermediates(v, out)
-    return out
-
-
 def calibrate_trunk_int8_resnet(net, images, batch_size: int = 2) -> tuple:
     """Activation scales for the int8 ResNet-50 bottleneck 1x1 GEMMs.
 
     Runs the bf16 trunk and reads the ``qin_absmax`` / ``qmid_absmax``
-    taps each Bottleneck sows (models/resnet.py): the block input (feeds
+    taps of each bottleneck (models/resnet.py): the block input (feeds
     conv1 + downsample) and the post-bn2-ReLU mid activation (feeds
     conv3). Returns 2 floats per block in block-definition order, plus a
     trailing trunk-OUTPUT scale — the layout ``MODEL.INT8_SCALES``
@@ -111,47 +90,26 @@ def calibrate_trunk_int8_resnet(net, images, batch_size: int = 2) -> tuple:
         raise ValueError("calibrate with a bfloat16/float32 net, not int8")
     import jax
 
-    trunk = net.model.trunk if hasattr(net.model, "trunk") else None
-    stage_sizes = getattr(trunk, "stage_sizes", (3, 4, 6))
-    block_names = [f"layer{s + 1}_block{b}"
-                   for s, n in enumerate(stage_sizes) for b in range(n)]
-
-    @jax.jit
-    def sown_maxes(params, chunk):
-        _, state = net.model.apply(params, chunk, method="features",
-                                   mutable=["intermediates"])
-        inter = state["intermediates"]
-        taps = _find_blocks(inter, set(block_names))
-        out_tap = _find_blocks(inter, {"qout_absmax"})["qout_absmax"][0]
-        return ({name: (taps[name]["qin_absmax"][0],
-                        taps[name]["qmid_absmax"][0])
-                 for name in block_names}, out_tap)
+    block_names = [name for name, _, _ in net.model.trunk._blocks()]
+    sown_maxes = jax.jit(
+        lambda params, chunk: net.model.apply(params, chunk,
+                                              method="trunk_taps"))
 
     images = np.asarray(images, np.float32)
     maxes = {n: [0.0, 0.0] for n in block_names}
     out_max = 0.0
     for start in range(0, images.shape[0], batch_size):
         chunk = jnp.asarray(images[start : start + batch_size])
-        md, mo = jax.device_get(sown_maxes(net.params, chunk))
-        out_max = max(out_max, float(mo))
+        taps = jax.device_get(sown_maxes(net.params, chunk))
+        out_max = max(out_max, float(taps["qout_absmax"]))
         for name in block_names:
-            maxes[name][0] = max(maxes[name][0], float(md[name][0]))
-            maxes[name][1] = max(maxes[name][1], float(md[name][1]))
+            maxes[name][0] = max(maxes[name][0],
+                                 float(taps[name]["qin_absmax"]))
+            maxes[name][1] = max(maxes[name][1],
+                                 float(taps[name]["qmid_absmax"]))
     per_block = [max(v, 1e-6) / 127.0
                  for name in block_names for v in maxes[name]]
     return tuple(per_block + [max(out_max, 1e-6) / 127.0])
-
-
-def _find_blocks(tree, names, out=None):
-    """Collect {block_name: sub-tree} anywhere under the intermediates."""
-    if out is None:
-        out = {}
-    for k, v in tree.items():
-        if k in names:
-            out[k] = v
-        elif isinstance(v, dict) or hasattr(v, "items"):
-            _find_blocks(v, names, out)
-    return out
 
 
 def calibrate_head_int8(net, images, trunk_scales, batch_size: int = 2):
@@ -169,16 +127,12 @@ def calibrate_head_int8(net, images, trunk_scales, batch_size: int = 2):
 
     rois = jnp.asarray(division_tree_regions((h, w), 2,
                                              offset=net.cfg.BOX_OFFSET))
-    filt = lambda mdl, _: getattr(mdl, "name", None) == "fc6"
 
     @jax.jit
     def fc6_max(params, chunk):
         def one(feat):
-            _, inter = net.model.apply(params, feat, rois,
-                                       method="roi_forward",
-                                       capture_intermediates=filt)
-            leaves = jax.tree_util.tree_leaves(inter)
-            return jnp.max(jnp.maximum(leaves[0].astype(jnp.float32), 0.0))
+            y = net.model.apply(params, feat, rois, method="fc6_preact")
+            return jnp.max(jnp.maximum(y.astype(jnp.float32), 0.0))
 
         feats = net.model.apply(params, chunk, method="features")
         return jnp.max(jax.vmap(one)(feats))

@@ -1,4 +1,4 @@
-"""ROI feature extraction: Caffe-exact max pooling + TPU-native ROI align.
+"""ROI feature extraction: Caffe-exact max pooling + matmul-form ROI align.
 
 Reference equivalent (SURVEY.md §2.3): the fork-added CUDA ROIPooling layer
 ``caffe-fast-rcnn/src/caffe/layers/roi_pooling_layer.{cpp,cu}`` — max-pool
@@ -6,19 +6,16 @@ each ROI into a fixed ``pool x pool`` grid from the conv feature map at
 ``spatial_scale = 1/16``, with integer floor/ceil rounding of sub-bin
 boundaries.
 
-Three implementations behind ``roi_pool(mode=...)``:
+Two implementations behind ``roi_pool(mode=...)``:
 
 - :func:`roi_pool_caffe` ('caffe_max') — bit-parity semantics (round/
   floor/ceil via exact integer bin boundaries, empty bins produce 0) as
   vectorized gathers with a static per-bin window bound.
 - :func:`roi_align` ('align', the default) — bilinear crop-and-resize with
-  average pooling, expressed as separable bilinear-weight MXU matmuls.
+  average pooling, expressed as separable bilinear-weight matmuls.
   This is what we train and search with.
-- ``aznet_tpu.ops.pallas.roi_kernel.roi_align_pallas`` ('align_pallas') —
-  the same numerics fully fused in VMEM; exact but slower than the XLA
-  separable form at VOC shapes (kept as an alternative / for large maps).
 
-All are pure jnp / Pallas (jit/vmap/grad-safe where applicable).
+Both are pure jnp (jit/vmap/grad-safe where applicable).
 """
 
 from __future__ import annotations
@@ -126,11 +123,11 @@ def _bilinear_pool_weights(lo, size, extent: int, pool: int, sampling: int):
     samples along one axis. Returns [R, pool, extent] weights such that
     ``out = W @ feat_axis`` — each row sums to 1.
 
-    This is the MXU formulation of ROI align: a bilinear sample at position
+    This is the matmul formulation of ROI align: a bilinear sample at position
     y has axis weights ``relu(1 - |y - h|)`` over the integer grid h, so
     sampling + averaging collapse into one small dense matrix per roi and
-    the pooling becomes two matmuls instead of dynamic gathers (gathers are
-    the slow path on TPU; this ran ~100x faster in the level loop).
+    the pooling becomes two matmuls instead of dynamic gathers. Whether a
+    gather form wins on the GPU is open (ROADMAP S4).
     """
     n = pool * sampling
     grid = (jnp.arange(n, dtype=jnp.float32) + 0.5) / n  # (0,1) sample centers
@@ -151,9 +148,8 @@ def _contract_w_first(h: int, w: int, c: int, itemsize: int,
     [R, q, H, C] — on big feature maps that intermediate is pure HBM
     traffic between two matmuls XLA cannot fuse (at ResNet-50@1088x1920,
     stride 16, C=1024 it is 220 vs 124 MB per 128-roi level — DESIGN.md
-    round-4). Only kicks in when the map is HBM-resident-scale (> 8 MB):
-    small maps keep the historical H-first order so the Pallas fused
-    kernel and the hardware parity checks stay bit-identical."""
+    round-4). Only kicks in when the map is large (> 8 MB): small maps
+    keep the historical H-first order."""
     if override is not None:
         return bool(override)
     env = os.environ.get("AZNET_ROI_WFIRST")  # pipeline A/B knob
@@ -165,7 +161,7 @@ def _contract_w_first(h: int, w: int, c: int, itemsize: int,
 def roi_align(feat, rois, spatial_scale: float, pool_size: int = 7,
               sampling: int = 2, chunk: int = 256, offset: float = 0.0,
               w_first=None):
-    """ROI align: bilinear crop-and-resize + average pooling (TPU-native).
+    """ROI align: bilinear crop-and-resize + average pooling (matmul form).
 
     ``feat``: [H, W, C]; ``rois``: [R, 4] image coords. Returns
     [R, pool, pool, C]. No coordinate rounding (continuous), ``sampling^2``
@@ -174,7 +170,7 @@ def roi_align(feat, rois, spatial_scale: float, pool_size: int = 7,
 
     Implementation: separable interpolation expressed as two einsum
     contractions against small per-roi weight matrices — the whole op runs
-    on the MXU with zero gathers (see _bilinear_pool_weights). Contraction
+    as matmuls with zero gathers (see _bilinear_pool_weights). Contraction
     order picks the smaller staged intermediate (``w_first=None`` — see
     _contract_w_first; pass True/False to pin it).
     """
@@ -223,18 +219,17 @@ def roi_align_int8(feat8, rois, spatial_scale: float, pool_size: int = 7,
     with its calibrated ``s_in``, skipping the bf16 dequant->requant round
     trip of the default path.
 
-    Compute shape (why this wins, DESIGN.md finding 10): the row
-    contraction ``[R*p, H] x [H, W*C]`` is the hot einsum of the search
-    head's pooling; its K dim (H ~ 38 at VOC scale) pads to the 128-lane
-    MXU tile identically in both dtypes, and the int8 MXU runs ~2x bf16
-    per cycle, so quantizing both operands halves the dominant term. The
+    Compute shape: the row contraction ``[R*p, H] x [H, W*C]`` is the hot
+    einsum of the search head's pooling; int8 GEMMs run at twice the bf16
+    rate, so quantizing both operands can halve the dominant term (whether
+    it pays on the H100 is ROADMAP S2). The
     interpolation weights are non-negative and <= 1, so ``round(w * 127)``
     keys them into 7 bits with <= 0.4% per-weight error — below the 1/254
     granularity the int8 fc6 input quantization imposes anyway. The second
     (7x smaller) contraction stays bf16.
 
     Reference equivalent: none — the reference's ROIPooling is f32 CUDA
-    (SURVEY.md §2.3; mount empty). TPU-new, inference-only.
+    (SURVEY.md §2.3; mount empty). Not in the reference; inference-only.
     """
     h, w, c = feat8.shape
     p = pool_size
@@ -250,7 +245,7 @@ def roi_align_int8(feat8, rois, spatial_scale: float, pool_size: int = 7,
         roi_h = jnp.maximum(y2 - y1, 1.0)
         wy = _bilinear_pool_weights(y1, roi_h, h, p, sampling)  # [R, p, H]
         wx = _bilinear_pool_weights(x1, roi_w, w, p, sampling)  # [R, p, W]
-        # Hot (feature-operand) contraction on the int8 MXU: int32
+        # Hot (feature-operand) contraction as an int8 GEMM: int32
         # accumulate, units of feat8/127 (the int8 weight carries the
         # x127). The axis-order heuristic applies as in roi_align.
         if wf:
@@ -280,16 +275,12 @@ def roi_align_int8(feat8, rois, spatial_scale: float, pool_size: int = 7,
 def roi_pool(feat, rois, spatial_scale: float, pool_size: int = 7,
              mode: str = "align", **kw):
     """Dispatch on cfg.MODEL.POOLING_MODE: 'align' (XLA separable matmuls,
-    the default/fastest), 'align_pallas' (fully fused VMEM kernel; exact
-    same numerics as 'align' in the H-first regime — small maps, <= 8 MB.
-    On larger maps 'align' switches to the w-first contraction order
-    (_contract_w_first), whose bf16-staged intermediate is a DIFFERENT
-    reduction order: outputs then agree to rounding tolerance, not
-    bit-exactly — pinned by tests/test_roi_pool.py::
+    the default; on larger maps it switches to the w-first contraction
+    order, _contract_w_first — pinned by tests/test_roi_pool.py::
     test_align_contraction_order_equivalence), 'caffe_max' (reference
     ROIPooling parity).
 
-    int8 features select the int8 MXU path (:func:`roi_align_int8`,
+    int8 features select the int8 GEMM path (:func:`roi_align_int8`,
     'align' mode only) and return int8 pooled in the same scale."""
     if feat.dtype == jnp.int8:
         if mode != "align":
@@ -298,10 +289,6 @@ def roi_pool(feat, rois, spatial_scale: float, pool_size: int = 7,
         return roi_align_int8(feat, rois, spatial_scale, pool_size, **kw)
     if mode == "align":
         return roi_align(feat, rois, spatial_scale, pool_size, **kw)
-    if mode == "align_pallas":
-        from aznet_tpu.ops.pallas.roi_kernel import roi_align_pallas
-
-        return roi_align_pallas(feat, rois, spatial_scale, pool_size, **kw)
     if mode == "caffe_max":
         return roi_pool_caffe(feat, rois, spatial_scale, pool_size, **kw)
     raise ValueError(f"unknown pooling mode: {mode}")

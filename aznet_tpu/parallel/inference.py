@@ -1,10 +1,9 @@
 """Sharded batched inference over the device mesh.
 
 No reference equivalent (the reference is single-GPU, SURVEY.md §2.4); this
-is the "5,000 img/s on v5e-8" path: the batch dimension shards over the
-'data' axis, parameters replicate, and XLA runs the whole propose pipeline
-SPMD with zero collectives in the forward (embarrassingly parallel over
-images — the ideal ICI story is the one where you don't use it).
+is the data-parallel path: the batch dimension shards over the 'data' axis,
+parameters replicate, and XLA runs the whole propose pipeline SPMD with
+zero collectives in the forward (embarrassingly parallel over images).
 """
 
 from __future__ import annotations
@@ -25,7 +24,7 @@ def region_roi_wrap(mesh, axes=("model",)):
     the reference is single-GPU and host-loops the frontier, §3.1): the work
     unit being split is the zoom-tree frontier, not a token sequence. The
     trunk feature map stays replicated (it is read-only under the search),
-    and the frontier update / NMS tail re-gathers over ICI automatically.
+    and the frontier update / NMS tail re-gathers automatically.
     """
     spec = NamedSharding(mesh, P(axes, None))
 
@@ -59,8 +58,8 @@ def make_latency_propose(model, cfg, canvas_hw, mesh):
     """Single-image latency path: ``(params, image [H, W, 3]) -> (boxes,
     scores, valid)`` with the search frontier sharded over EVERY mesh device
     (both axes flattened). This is BASELINE config 1's shape (one image at a
-    time, the reference's demo path) scaled out: with FRONTIER_CAP=64 on a
-    v5e-8, each device evaluates 8 regions per tree level."""
+    time, the reference's demo path) scaled out: with FRONTIER_CAP=64 on 4
+    cards, each device evaluates 16 regions per tree level."""
     wrap = region_roi_wrap(mesh, axes=("data", "model"))
     fn = make_propose_batch(model, cfg, canvas_hw, roi_wrap=wrap)
 

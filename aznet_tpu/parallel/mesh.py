@@ -1,10 +1,12 @@
 """Mesh construction and sharding rules.
 
-Design (SURVEY.md §2.4 "First-class TPU components to build"): data
-parallelism over the batch is the throughput axis; tensor parallelism shards
-the 4096-wide fc6/fc7 kernels over ``model`` (they dominate head FLOPs and
-params — 25088x4096 for VGG-16). Everything else is replicated. XLA inserts
-the psum/all-gathers over ICI.
+Design (SURVEY.md §2.4): data parallelism over the batch is the throughput
+axis; tensor parallelism shards the 4096-wide fc6/fc7 kernels over
+``model`` (they dominate head FLOPs and params — 25088x4096 for VGG-16).
+Everything else is replicated. XLA inserts the psum/all-gathers (NCCL on
+GPUs). The cards of one host are joined all to all by NVLink, so the mesh
+follows the algorithm alone: any ``data x model`` factorisation of the
+device list.
 """
 
 from __future__ import annotations
@@ -48,8 +50,8 @@ def param_sharding(mesh: Mesh, params) -> dict:
     """NamedSharding tree for a params pytree: TP on fc6/fc7, replicate rest.
 
     fc6 kernel [in, H] shards H over 'model'; fc7 kernel [H, H] shards the
-    output dim (XLA all-gathers the activations between them — on a v5e the
-    4096-d activations are small vs the 100M-param kernels).
+    output dim (XLA all-gathers the activations between them — the 4096-d
+    activations are small vs the 100M-param kernels).
     """
 
     def rule(path, leaf):

@@ -11,7 +11,7 @@ local AZ minibatch, assembles the global batch, and runs one sharded
 train step on the global ('data', 'model') mesh.
 
 Reference equivalent: none — the reference is single-process single-GPU
-(SURVEY.md §2.4); multi-host input sharding is TPU-new by mandate.
+(SURVEY.md §2.4); multi-host input sharding is new here.
 
 Usage:
   launcher (in-process API):  run_multihost_dryrun(num_processes=2)

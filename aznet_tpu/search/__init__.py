@@ -5,7 +5,7 @@ Reference equivalent: ``lib/detect/test.py::im_propose`` (SURVEY.md §2.1,
 loops at every tree level. Here the entire search is one on-device
 ``lax.while_loop`` over fixed-shape padded frontiers: zoom gating, region
 division, delta decoding, candidate accumulation (top-K eviction) and final
-NMS all stay on the TPU; the host sees only the final (N, 5) proposals.
+NMS all stay on the device; the host sees only the final (N, 5) proposals.
 """
 
 from aznet_tpu.search.templates import (

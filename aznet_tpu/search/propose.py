@@ -8,7 +8,7 @@ a single compiled program over fixed shapes:
 
   state = (level, frontier [R,4]+valid, candidates [B,4]+scores)
   while level < MAX_LEVELS and any(frontier valid):
-    head(feat, frontier)                      # ROI pool + fc + heads, on MXU
+    head(feat, frontier)                      # ROI pool + fc + heads
     decode K adjacency boxes per region       # bbox_transform_inv, fused
     merge R*K scored candidates into top-B    # lax.top_k eviction
     children = divide(zoom > Tz regions)      # 5 per region

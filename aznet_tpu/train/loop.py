@@ -4,7 +4,7 @@ Reference equivalents (SURVEY.md §3.3): ``lib/detect/train.py::train_net``
 and ``lib/fast_rcnn/train.py::train_net`` — SolverWrapper + roidb + a
 ``solver.step(1)`` loop with periodic snapshots. Differences by design:
 the minibatch builder runs on host threads while the compiled train step
-runs on the TPU (the reference's optional prefetch process, made default),
+runs on the device (the reference's optional prefetch process, made default),
 and snapshots are orbax checkpoints with the bbox-normalization baking
 applied to a deployment copy.
 """
@@ -33,8 +33,8 @@ def process_local_indices(n_entries: int):
     """Round-robin roidb shard for this host process (SURVEY.md §2.4
     "host data pipeline sharded per-process").
 
-    Single-process (a v5e-8 host) returns all indices. On a multi-host pod
-    slice each jax process samples only its shard, so no image is decoded
+    Single-process (one host) returns all indices. On a multi-host
+    cluster each jax process samples only its shard, so no image is decoded
     twice and the global batch is assembled from purely-local shards by
     :func:`jax.make_array_from_process_local_data` — zero cross-host data
     movement on the input path.

@@ -19,20 +19,48 @@ Batch layout (built by aznet_tpu.data.minibatch):
 
 from __future__ import annotations
 
-from functools import partial
+import functools
+
+import dataclasses
+from typing import Any, Callable
 
 import jax
 import jax.numpy as jnp
 import optax
-from flax.training import train_state
 
 from aznet_tpu.config import Config
 from aznet_tpu.ops.losses import sigmoid_ce_loss, smooth_l1_loss
 from aznet_tpu.train.optim import make_optimizer
 
 
-class TrainState(train_state.TrainState):
-    pass
+@functools.partial(jax.tree_util.register_dataclass,
+                   data_fields=["step", "params", "opt_state"],
+                   meta_fields=["apply_fn", "tx"])
+@dataclasses.dataclass(frozen=True)
+class TrainState:
+    """Parameters, optimizer state and step count as one pytree
+    (``apply_fn`` and ``tx`` are static)."""
+
+    step: Any
+    apply_fn: Callable
+    params: Any
+    tx: optax.GradientTransformation
+    opt_state: Any
+
+    @classmethod
+    def create(cls, *, apply_fn, params, tx) -> "TrainState":
+        return cls(step=jnp.asarray(0, jnp.int32), apply_fn=apply_fn,
+                   params=params, tx=tx, opt_state=tx.init(params))
+
+    def apply_gradients(self, *, grads) -> "TrainState":
+        updates, opt_state = self.tx.update(grads, self.opt_state,
+                                            self.params)
+        return self.replace(step=self.step + 1,
+                            params=optax.apply_updates(self.params, updates),
+                            opt_state=opt_state)
+
+    def replace(self, **changes) -> "TrainState":
+        return dataclasses.replace(self, **changes)
 
 
 def az_loss(model, params, batch, dropout_rng=None, pos_weights=(1.0, 1.0),

@@ -6,7 +6,7 @@ bbox-target normalization mean/std back into the regression layer's weights
 so inference needs no normalization metadata. We store (params, opt_state,
 step) via orbax with auto-resume from latest, and provide
 ``bake_bbox_normalization`` / ``unbake_bbox_normalization`` implementing the
-same trick for our Dense heads (kernel columns scaled by std, bias
+same trick for our dense heads (kernel columns scaled by std, bias
 ``b*std + mean`` tiled per 4-group).
 """
 
@@ -26,18 +26,38 @@ import jax.numpy as jnp
 # ---------------------------------------------------------------------------
 
 
-def _map_head(params: Any, head_name: str, fn):
-    """Apply fn(kernel, bias) -> (kernel, bias) to the named Dense head."""
-    import flax
+def flatten_dict(tree, prefix: tuple = ()) -> dict:
+    """Nested dicts -> ``{path tuple: leaf}``."""
+    flat = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            flat.update(flatten_dict(v, prefix + (k,)))
+        else:
+            flat[prefix + (k,)] = v
+    return flat
 
-    flat = flax.traverse_util.flatten_dict(params)
+
+def unflatten_dict(flat: dict) -> dict:
+    """Inverse of :func:`flatten_dict`."""
+    tree: dict = {}
+    for path, leaf in flat.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def _map_head(params: Any, head_name: str, fn):
+    """Apply fn(kernel, bias) -> (kernel, bias) to the named dense head."""
+    flat = flatten_dict(params)
     hits = [k for k in flat if head_name in k and k[-1] == "kernel"]
     if not hits:
-        raise KeyError(f"no Dense head named {head_name!r} in params")
+        raise KeyError(f"no dense head named {head_name!r} in params")
     for kk in hits:
         bk = kk[:-1] + ("bias",)
         flat[kk], flat[bk] = fn(flat[kk], flat[bk])
-    return flax.traverse_util.unflatten_dict(flat)
+    return unflatten_dict(flat)
 
 
 def bake_bbox_normalization(params: Any, means, stds, head_name: str = "adj_bbox"):
@@ -85,7 +105,12 @@ class Checkpointer:
         self.directory = os.path.abspath(directory)
         self.prefix = prefix
         os.makedirs(self.directory, exist_ok=True)
-        import orbax.checkpoint as ocp
+        try:
+            import orbax.checkpoint as ocp
+        except ImportError as e:
+            raise ImportError(
+                "training snapshots need orbax-checkpoint "
+                "(pip install orbax-checkpoint)") from e
 
         self._ocp = ocp
         self._mgr = ocp.CheckpointManager(

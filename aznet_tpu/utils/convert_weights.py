@@ -1,13 +1,13 @@
-"""Caffe -> Flax weight conversion.
+"""Caffe -> parameter-tree weight conversion.
 
 Reference weights live in ``.caffemodel`` protobufs (VGG-16 ImageNet trunk +
 trained AZ/FRCNN heads — SURVEY.md §5.4). This module converts a dict of
 NumPy arrays extracted from such a snapshot (``{layer: (W, b)}``, the layout
-``caffe.Net.params`` exposes) into our Flax parameter trees. No network or
+``caffe.Net.params`` exposes) into our parameter trees. No network or
 caffe installation is assumed here — extraction to .npz happens wherever
 pycaffe exists; conversion is pure NumPy:
 
-- Conv: Caffe (out, in, kh, kw) -> Flax (kh, kw, in, out). Note the BGR
+- Conv: Caffe (out, in, kh, kw) -> ours (kh, kw, in, out). Note the BGR
   question does NOT arise: Caffe nets are already BGR-input and we keep BGR
   preprocessing, so conv1_1 converts unchanged.
 - Dense fc6: Caffe flattens ROI-pooled features channel-first (C, P, P); our
@@ -49,7 +49,7 @@ VGG16_CONV_NAMES = (
 
 # The fork's smaller nets (SURVEY.md §2.1 [M]): 5 convs each. Grouped
 # layers (CaffeNet conv2/conv4/conv5, group=2) need NO special handling —
-# Caffe stores grouped kernels as (out, in/g, kh, kw) and Flax's
+# Caffe stores grouped kernels as (out, in/g, kh, kw) and XLA's
 # feature_group_count expects (kh, kw, in/g, out): the same transpose.
 SMALL_TRUNK_CONV_NAMES = ("conv1", "conv2", "conv3", "conv4", "conv5")
 
@@ -63,7 +63,7 @@ _TRUNK_LAYOUTS = {
 
 def convert_trunk(caffe_params: Dict[str, Tuple[np.ndarray, np.ndarray]],
                   arch: str = "vgg16"):
-    """``{name: (W, b)}`` -> flax trunk param dict for the named backbone."""
+    """``{name: (W, b)}`` -> trunk param dict for the named backbone."""
     names = _TRUNK_LAYOUTS[arch][0]
     out = {}
     for name in names:

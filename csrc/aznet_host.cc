@@ -2,7 +2,7 @@
 //
 // Reference equivalents (SURVEY.md §2.3): the Cython extensions built by
 // lib/setup.py — bbox_overlaps (bbox.pyx) and greedy NMS (nms.pyx) — plus
-// the cv2-backed image prep in lib/utils/blob.py. The TPU compute path uses
+// the cv2-backed image prep in lib/utils/blob.py. The device compute path uses
 // the JAX/Pallas implementations; these C++ versions serve the host-side
 // eval/data paths (oracle NMS for mAP eval, minibatch image prep) where the
 // reference also ran native host code.

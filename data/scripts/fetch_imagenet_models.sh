@@ -30,5 +30,5 @@ np.savez('vgg16_caffe.npz', **{f'{k}_W': v[0].data for k, v in net.params.items(
          **{f'{k}_b': v[1].data for k, v in net.params.items() if len(v) > 1})
 PY
   python tools/convert_caffe.py --npz data/imagenet_models/vgg16_caffe.npz \
-      --out data/imagenet_models/vgg16_flax.msgpack
+      --out data/imagenet_models/vgg16_params.msgpack
 EOF

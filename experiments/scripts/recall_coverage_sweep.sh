@@ -26,7 +26,6 @@ run() {
     python tools/test_net.py --mode recall --imdb "$IMDB" --cfg "$CFG" \
         --ckpt "$CKPT" --batched
   fi
-  sleep 20   # relay discipline: let the previous client fully exit
 }
 
 run baseline

@@ -1,7 +1,7 @@
 #!/usr/bin/env bash
 # Round-2 quality bar on the hard synthetic benchmark (512 VOC-sized train
 # images, small/overlapping objects, distractor hard negatives): width-0.25
-# VGG-16 at the reference 600-px scale, full chain on the TPU
+# VGG-16 at the reference 600-px scale, full chain on the accelerator
 # (train AZ -> cache proposals -> train FRCNN -> recall -> mAP).
 # Usage: ./experiments/scripts/synthetic_hard_quality.sh [AZ_ITERS] [FRCNN_ITERS] [OUT]
 set -euo pipefail

@@ -18,7 +18,7 @@ def test_convert_conv_layout():
     w = rng.randn(64, 3, 3, 3).astype(np.float32)  # caffe (out, in, kh, kw)
     b = rng.randn(64).astype(np.float32)
     out = convert_conv(w, b)
-    assert out["kernel"].shape == (3, 3, 3, 64)  # flax (kh, kw, in, out)
+    assert out["kernel"].shape == (3, 3, 3, 64)  # (kh, kw, in, out)
     # spot-check one element
     assert out["kernel"][1, 2, 0, 7] == w[7, 0, 1, 2]
 
@@ -67,7 +67,7 @@ def test_convert_vgg16_trunk_loads_into_model():
 
 
 def test_convert_caffenet_trunk_grouped_convs():
-    """Grouped Caffe kernels (out, in/g, kh, kw) land directly in Flax's
+    """Grouped Caffe kernels (out, in/g, kh, kw) land directly in XLA's
     feature_group_count layout — round-trip into CaffeNetTrunk and run."""
     from aznet_tpu.utils.convert_weights import convert_trunk
     from aznet_tpu.models.small import CaffeNetTrunk

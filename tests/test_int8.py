@@ -148,125 +148,3 @@ def test_int8_heads_match_f32_roi_forward():
         a, b = np.asarray(ref[k], np.float32), np.asarray(out[k], np.float32)
         # logits: compare on a sigmoid-ish scale
         assert np.abs(1 / (1 + np.exp(-a)) - 1 / (1 + np.exp(-b))).max() < 0.1
-
-
-def test_int8_chain_walk_matches_xla_backend(monkeypatch):
-    """The vgg chain walk (halo entry -> fused-pool interior -> compact
-    exit) on a mini layout == the portable XLA int8 backend, interpret
-    mode off-TPU (AZNET_INT8_INTERPRET hook). Verifies the layer
-    lookahead/pool-skip/h,w bookkeeping, not just the kernel."""
-    from aznet_tpu.models import vgg as vggmod
-
-    mini = (("conv1_1", 128), ("conv2_1", 128), ("conv2_2", 128),
-            ("pool2", None), ("conv3_1", 128), ("conv3_2", 128))
-    monkeypatch.setattr(vggmod, "VGG16_LAYOUT", mini)
-    monkeypatch.setattr(vggmod.VGG16Trunk, "_INT8_BF16_PREFIX", ("conv1_1",))
-    monkeypatch.setenv("AZNET_INT8_INTERPRET", "1")
-    calls = _spy_chain_kernel(monkeypatch)
-
-    rng = np.random.RandomState(5)
-    scales = (0.5, 0.25, 0.25, 0.5)  # powers of two: requant is exact
-    # 22x20: fused even-dim pool; 21x18: odd h -> unfused pool fallback
-    for hw, out_hw in (((22, 20), (11, 10)), ((21, 18), (10, 9))):
-        x = rng.uniform(-1, 1, (1,) + hw + (3,)).astype(np.float32)
-        outs = {}
-        for backend in ("xla", "pallas", "pallas_strip"):
-            trunk = vggmod.VGG16Trunk(dtype=jnp.float32, int8_mode=True,
-                                      int8_scales=scales,
-                                      int8_backend=backend)
-            params = trunk.init(jax.random.PRNGKey(0), jnp.asarray(x))
-            outs[backend] = np.asarray(trunk.apply(params, jnp.asarray(x)))
-        assert outs["xla"].shape == (1,) + out_hw + (128,)
-        for backend in ("pallas", "pallas_strip"):
-            d = np.abs(outs[backend] - outs["xla"])
-            # identical int32 accumulations; the only difference is the
-            # epilogue's mul-by-reciprocal vs divide requant, exact at
-            # power-of-two scales -> bit-equal up to f32 fma reassociation
-            assert d.max() <= 1e-5 * max(1.0, np.abs(outs["xla"]).max()), (
-                backend, d.max())
-    # "pallas" must have used the chain kernel (4 chain layers x 2
-    # shapes); xla/pallas_strip contribute zero chain calls.
-    assert len(calls) == 8, len(calls)
-
-
-def _spy_chain_kernel(monkeypatch):
-    """Count conv3x3_int8_chain invocations (vgg imports it per-call, so
-    patching the defining module is picked up). Guards against the walk
-    silently falling back to a different backend (a real bug once: a
-    monkeypatched prefix made the chain gate False and the ext test
-    passed against the strip kernel)."""
-    from aznet_tpu.ops.pallas import conv_int8_chain as mod
-
-    calls = []
-    real = mod.conv3x3_int8_chain
-
-    def spy(*a, **k):
-        calls.append(1)
-        return real(*a, **k)
-
-    monkeypatch.setattr(mod, "conv3x3_int8_chain", spy)
-    return calls
-
-
-def test_int8_chain_ext_conv1_matches_xla(monkeypatch):
-    """INT8_CHAIN_FROM='conv1_2': the 64-channel conv1_2/conv2_1 run as
-    chain kernels with zero lane-padding to 128. Oracle: the XLA int8
-    backend with the same quantization boundary (prefix monkeypatched to
-    conv1_1-only for the oracle; the pallas side reaches it via the
-    chain_ext gate with the REAL 3-name prefix, which requires the
-    128-channel convs of the mini layout to pass the chain check),
-    power-of-two scales -> equal up to f32 fma reassociation."""
-    from aznet_tpu.models import vgg as vggmod
-
-    mini = (("conv1_1", 64), ("conv1_2", 64), ("pool1", None),
-            ("conv2_1", 128), ("conv2_2", 128))
-    monkeypatch.setattr(vggmod, "VGG16_LAYOUT", mini)
-    monkeypatch.setenv("AZNET_INT8_INTERPRET", "1")
-    calls = _spy_chain_kernel(monkeypatch)
-
-    rng = np.random.RandomState(6)
-    x = rng.uniform(-1, 1, (1, 16, 16, 3)).astype(np.float32)
-    scales = (0.5, 0.25, 0.25)
-    outs = {}
-    real_prefix = ("conv1_1", "conv1_2", "conv2_1")
-    for backend, frm, prefix in (("xla", "conv2_2", ("conv1_1",)),
-                                 ("pallas", "conv1_2", real_prefix)):
-        monkeypatch.setattr(vggmod.VGG16Trunk, "_INT8_BF16_PREFIX", prefix)
-        trunk = vggmod.VGG16Trunk(dtype=jnp.float32, int8_mode=True,
-                                  int8_scales=scales, int8_backend=backend,
-                                  int8_chain_from=frm)
-        params = trunk.init(jax.random.PRNGKey(0), jnp.asarray(x))
-        outs[backend] = np.asarray(trunk.apply(params, jnp.asarray(x)))
-    # the pallas walk must actually have run chain kernels (conv1_2,
-    # conv2_1, conv2_2 = 3 chain calls), not a fallback backend
-    assert len(calls) == 3, len(calls)
-    assert outs["xla"].shape == (1, 8, 8, 128)
-    d = np.abs(outs["pallas"] - outs["xla"])
-    assert d.max() <= 1e-5 * max(1.0, np.abs(outs["xla"]).max()), d.max()
-
-
-def test_int8_chain_guards(monkeypatch):
-    """Invalid INT8_CHAIN_FROM raises; a layout whose pool directly
-    follows the bf16 prefix is rejected (the generic pool branch would
-    otherwise pool the haloed layout silently)."""
-    from aznet_tpu.models import vgg as vggmod
-
-    monkeypatch.setenv("AZNET_INT8_INTERPRET", "1")
-    x = jnp.zeros((1, 8, 8, 3), jnp.float32)
-    scales = tuple([0.5] * 12)
-
-    bad = vggmod.VGG16Trunk(dtype=jnp.float32, int8_mode=True,
-                            int8_scales=scales, int8_chain_from="conv12")
-    params = bad.init(jax.random.PRNGKey(0), x)
-    with pytest.raises(ValueError, match="INT8_CHAIN_FROM"):
-        bad.apply(params, x)
-
-    mini = (("conv1_1", 128), ("pool1", None), ("conv2_1", 128),
-            ("conv2_2", 128))
-    monkeypatch.setattr(vggmod, "VGG16_LAYOUT", mini)
-    monkeypatch.setattr(vggmod.VGG16Trunk, "_INT8_BF16_PREFIX", ("conv1_1",))
-    trunk = vggmod.VGG16Trunk(dtype=jnp.float32, int8_mode=True,
-                              int8_scales=(0.5, 0.5))
-    params = trunk.init(jax.random.PRNGKey(0), x)
-    with pytest.raises(ValueError, match="pool directly follows"):
-        trunk.apply(params, x)

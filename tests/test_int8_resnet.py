@@ -3,7 +3,7 @@ trunk parity, head compatibility.
 
 VERDICT r3 weak #2: models/resnet.py's int8 path shipped with zero tests.
 These mirror tests/test_int8.py's VGG patterns (the repo convention: every
-compute-path variant gets a CPU test vs an oracle + a tpu_checks entry).
+compute-path variant gets a CPU test vs an oracle).
 """
 
 import numpy as np

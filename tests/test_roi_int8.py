@@ -1,11 +1,10 @@
 """int8 ROI align (ops/roi_pool.py::roi_align_int8): the search head's
-pooling row-contraction on the int8 MXU, pooled features fed to the int8
+pooling row-contraction as an int8 GEMM, pooled features fed to the int8
 fc6 pre-quantized (no dequant->requant round trip).
 
 Oracle strategy per repo convention (CLAUDE.md): exactness where the math
 is exact (cell-aligned one-hot weights), bounded error vs the f32
-roi_align elsewhere, and an end-to-end propose equivalence smoke. The
-hardware entry lives in tools/tpu_checks.py (roi_align_int8_vs_f32).
+roi_align elsewhere, and an end-to-end propose equivalence smoke.
 """
 
 import numpy as np

@@ -32,7 +32,7 @@ def _run(args, timeout=240):
 def test_help_screens():
     for tool in ("train_net", "test_net", "propose_net", "demo", "time_net",
                  "bench_train", "bench_fused_detect", "bench_coco_eval",
-                 "tpu_checks", "ingest_data", "convert_caffe",
+                 "ingest_data", "convert_caffe",
                  "verify_reference"):
         r = _run([f"tools/{tool}.py", "--help"], timeout=60)
         assert r.returncode == 0, r.stderr[-500:]

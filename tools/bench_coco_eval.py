@@ -16,7 +16,7 @@ scale and times ``aznet_tpu.eval.coco_eval.coco_eval`` end to end:
     positives to ~100 dets/image, assigned mostly to classes present in
     the image (realistic confusion), spread over all 80 classes globally.
 
-Run (host CPU only — safe while anything trains on the TPU):
+Run (host CPU only — safe while anything trains on the card):
   python tools/bench_coco_eval.py                 # C++ tier (default)
   python tools/bench_coco_eval.py --images 500    # quick shape check
   python tools/bench_coco_eval.py --tiers native,numpy

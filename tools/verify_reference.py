@@ -46,7 +46,7 @@ API_SYMBOLS = [
 PRESENCE_CHECKS = [
     ("COCO imdb", r"coco.*\.py$", "data/coco.py exists here"),
     ("python voc_eval", r"voc_eval\.py$", "eval/voc_eval.py exists here"),
-    ("GPU NMS", r"(gpu_nms|nms_kernel\.cu)", "ops/pallas/nms_kernel.py here"),
+    ("GPU NMS", r"(gpu_nms|nms_kernel\.cu)", "ops/pallas/nms_triton.py here"),
     ("MATLAB eval wrapper", r"VOCdevkit-matlab", "pure-python eval here"),
     ("prefetch flag", None, "train/loop.py _Prefetcher (always on) here"),
     ("shared-trunk prototxt", None, "api.share_trunk here"),
